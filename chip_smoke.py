@@ -10,14 +10,20 @@ printing one line before the next starts:
    exits non-zero;
 2. prints the card's name and power limit (``nvidia-smi``), torch, CUDA and
    nvcc versions;
-3. builds the kernels from ``ganode_tpu_torch/csrc`` and prints the seconds;
-4. holds K1 (fused RK4) and K2 (fused GRU) against their plain PyTorch
-   versions on the card, at the serving shape and at a ragged one;
+3. builds the kernels from ``ganode_tpu_torch/csrc``, prints the seconds and
+   what ``ptxas -v`` said of each kernel, and requires that the warp
+   variants spill nothing;
+4. holds every variant of K1 (fused RK4) and K2 (fused GRU) against its plain
+   PyTorch version on the card: the warp variant at 16 lanes (serving, ragged
+   and odd-B shapes) and at 32, the wide variant at a width above 32 and,
+   forced, at the serving shape;
 5. serves ``ucf_ode`` at full width through ``GeneratorSession``, shows K1's
-   counter rose, and holds the videos against the same noise decoded with the
-   plain RK4 (and, for 2 clips, against the CPU);
+   warp-variant counter rose, and holds the videos against the same noise
+   decoded with the plain RK4 (and, for 2 clips, against the CPU);
 6. the same for ``mnist_gru`` with K2;
-7. times each kernel, its plain version, cuDNN's GRU as K2's yardstick, and
+7. times at the serving shape each kernel's warp variant and the wide one
+   (the earlier shared-memory design) in turns (warp, wide, wide, warp), the
+   wrapper call, the plain version, cuDNN's GRU as K2's yardstick, and
    ``sample_videos(64)`` for both configs, with CUDA events after warm-up.
 
 Float32 throughout. Matrix products run in full float32
@@ -140,53 +146,77 @@ def main() -> int:
     phase("build")
     _build.load_library()
     say(f"built {_build.library_path().name} in {_build.build_seconds:.2f} s")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            say("  ptxas:", line.strip())
+    ptxas = _build.ptxas_report(_build.build_log)
+    for name, info in ptxas.items():
+        say(f"  ptxas -v {name}: {info}")
+    warp_kernels = {n: i for n, i in ptxas.items() if "_warp_kernel" in n}
+    require(len(warp_kernels) == 4 and len(ptxas) == 6,
+            f"ptxas reported {sorted(ptxas)}: want 2 warp kernels at 16 and 32 "
+            "lanes and 2 wide kernels")
+    for name, info in warp_kernels.items():
+        require(info.get("spill_stores") == 0 and info.get("spill_loads") == 0,
+                f"warp kernel {name} spills: {info}")
 
     g = torch.Generator().manual_seed(0)
 
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=g) * scale).to(dev)
 
+    # Weights scale as 1/sqrt(fan_in), as the model's initialisers have them
+    # (0.4 and 0.3 at width 16), so trajectories stay O(1) at every width and
+    # 1e-5 abs is a float32 bar, as in tests/test_torch_cuda.py.
     def rk4_inputs(b, d, h, t):
-        return (randn(b, d), randn(d, h, scale=0.4), randn(h, scale=0.1),
-                randn(h, d, scale=0.4), randn(d, scale=0.1),
-                torch.linspace(0.0, 1.0, t))
+        return (randn(b, d), randn(d, h, scale=1.6 / d ** 0.5),
+                randn(h, scale=0.1), randn(h, d, scale=1.6 / h ** 0.5),
+                randn(d, scale=0.1), torch.linspace(0.0, 1.0, t))
 
     def gru_inputs(b, d, t):
-        return (randn(b, d), randn(t, b, d), randn(d, 3 * d, scale=0.3),
-                randn(d, 3 * d, scale=0.3), randn(3 * d, scale=0.1),
+        return (randn(b, d), randn(t, b, d), randn(d, 3 * d, scale=1.2 / d ** 0.5),
+                randn(d, 3 * d, scale=1.2 / d ** 0.5), randn(3 * d, scale=0.1),
                 randn(3 * d, scale=0.1))
 
-    errs = {}
-    phase("kernels vs plain versions")
-    for shape in ((64, 16, 16, 16), (5, 10, 24, 6)):
+    errs = {}  # (kernel, variant) -> worst max abs error
+    phase("kernels vs plain versions, every variant")
+
+    def hold(kernel, module, run, plain, shape, variant):
+        before = module.launches_by_variant[variant]
+        with torch.no_grad():
+            got = run()
+            torch.cuda.synchronize()
+            want = plain()
+        require(module.launches_by_variant[variant] == before + 1,
+                f"{kernel} {variant} counter did not rise")
+        err = (got - want).abs().max().item()
+        say(f"{kernel} {variant} shape={shape}: max|kernel-plain| = {err:.3e} "
+            f"(tol {TOL_TRAJ})")
+        require(got.shape == want.shape and err < TOL_TRAJ,
+                f"{tuple(got.shape)} vs {tuple(want.shape)}, err {err}")
+        errs[kernel, variant] = max(errs.get((kernel, variant), 0.0), err)
+
+    # B,D,H,T: serving, ragged, odd B (W=16); two at W=32; wide; serving forced wide
+    for shape, forced in (((64, 16, 16, 16), None), ((5, 10, 16, 6), None),
+                          ((1, 1, 1, 2), None), ((63, 16, 16, 16), None),
+                          ((7, 20, 32, 5), None), ((3, 32, 32, 4), None),
+                          ((33, 64, 200, 9), None), ((64, 16, 16, 16), "wide")):
         args = rk4_inputs(*shape)
-        before = fused_rk4.launches
-        got = fused_rk4_motion(*args)
-        torch.cuda.synchronize()
-        require(fused_rk4.launches == before + 1, "K1 counter did not rise")
-        want = reference_rk4_motion(*args)
-        err = (got - want).abs().max().item()
-        say(f"K1 rk4_motion B,D,H,T={shape}: max|kernel-plain| = {err:.3e} "
-            f"(tol {TOL_TRAJ})")
-        require(got.shape == want.shape and err < TOL_TRAJ,
-                f"{tuple(got.shape)} vs {tuple(want.shape)}, err {err}")
-        errs["rk4"] = max(errs.get("rk4", 0.0), err)
-    for shape in ((64, 16, 16), (5, 10, 6)):
+        variant = forced or _build.choose_variant(shape[1], shape[2])[0]
+        run = ((lambda: fused_rk4._launch(*args[:5], shape[3],
+                                          fused_rk4.uniform_step(args[5]),
+                                          variant=forced))
+               if forced else (lambda: fused_rk4_motion(*args)))
+        hold("K1 rk4_motion", fused_rk4, run,
+             lambda: reference_rk4_motion(*args), shape, variant)
+    # B,D,T: the same classes for K2
+    for shape, forced in (((64, 16, 16), None), ((5, 10, 6), None),
+                          ((1, 1, 1), None), ((63, 16, 16), None),
+                          ((9, 24, 5), None), ((4, 32, 3), None),
+                          ((9, 80, 5), None), ((64, 16, 16), "wide")):
         args = gru_inputs(*shape)
-        before = fused_gru.launches
-        got = fused_gru_motion(*args)
-        torch.cuda.synchronize()
-        require(fused_gru.launches == before + 1, "K2 counter did not rise")
-        want = reference_gru_motion(*args)
-        err = (got - want).abs().max().item()
-        say(f"K2 gru_motion B,D,T={shape}: max|kernel-plain| = {err:.3e} "
-            f"(tol {TOL_TRAJ})")
-        require(got.shape == want.shape and err < TOL_TRAJ,
-                f"{tuple(got.shape)} vs {tuple(want.shape)}, err {err}")
-        errs["gru"] = max(errs.get("gru", 0.0), err)
+        variant = forced or _build.choose_variant(shape[1])[0]
+        run = ((lambda: fused_gru._launch(*args, variant=forced)) if forced
+               else (lambda: fused_gru_motion(*args)))
+        hold("K2 gru_motion", fused_gru, run,
+             lambda: reference_gru_motion(*args), shape, variant)
 
     def decode(gen, zc, zm):
         """Independent composition of the generator: content || motion per
@@ -214,14 +244,19 @@ def main() -> int:
         sess = GeneratorSession(generator_for_config(cfg, device=dev), seed=0,
                                 device=dev)
         torch.backends.cudnn.allow_tf32 = False
-        fused_rk4.launches = fused_gru.launches = 0
+        for m in (fused_rk4, fused_gru):
+            m.launches = 0
+            m.launches_by_variant.update(warp=0, wide=0)
         videos, _ = sess.sample_videos(64)
         torch.cuda.synchronize()
         launches = counter.launches
+        by_variant = dict(counter.launches_by_variant)
         other = (fused_gru if counter is fused_rk4 else fused_rk4).launches
         say(f"{config_name}: sample_videos(64) -> {tuple(videos.shape)} "
-            f"channels-first; kernel launches {launches}, other kernel {other}")
-        require(launches >= 1, f"{config_name} did not launch its kernel")
+            f"channels-first; kernel launches {launches} {by_variant}, other "
+            f"kernel {other}")
+        require(by_variant["warp"] >= 1 and by_variant["wide"] == 0,
+                f"{config_name} did not serve through the warp variant")
         v = layout.video_from_torch(videos)
         require(tuple(v.shape) == want_shape, f"shape {tuple(v.shape)}")
         require(bool(torch.isfinite(v).all()) and v.abs().max().item() <= 1.0,
@@ -292,13 +327,25 @@ def main() -> int:
         torch.cuda.synchronize()
         return a.elapsed_time(b) / n
 
+    def in_turns(new, old, n):
+        """Device ms of two versions timed new, old, old, new: the means of
+        each side and the four readings in order."""
+        runs = [device_ms(fn, n) for fn in (new, old, old, new)]
+        return (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2, runs
+
     k1_args = rk4_inputs(64, 16, 16, 16)
     k2_args = gru_inputs(64, 16, 16)
+    k1_h = fused_rk4.uniform_step(k1_args[5])
     with torch.no_grad():
-        k1_ms = device_ms(lambda: fused_rk4_motion(*k1_args), 200)
+        k1_ms, k1_wide_ms, k1_turns = in_turns(
+            lambda: fused_rk4._launch(*k1_args[:5], 16, k1_h, variant="warp"),
+            lambda: fused_rk4._launch(*k1_args[:5], 16, k1_h, variant="wide"),
+            200)
         k1_call_ms = events_ms(lambda: fused_rk4_motion(*k1_args), 200)
         k1_plain_ms = events_ms(lambda: reference_rk4_motion(*k1_args), 10)
-        k2_ms = device_ms(lambda: fused_gru_motion(*k2_args), 200)
+        k2_ms, k2_wide_ms, k2_turns = in_turns(
+            lambda: fused_gru._launch(*k2_args, variant="warp"),
+            lambda: fused_gru._launch(*k2_args, variant="wide"), 200)
         k2_call_ms = events_ms(lambda: fused_gru_motion(*k2_args), 200)
         k2_plain_ms = events_ms(lambda: reference_gru_motion(*k2_args), 10)
         h0, e, wi, wh, bi, bh = k2_args
@@ -313,14 +360,18 @@ def main() -> int:
     k1_bound, k1_by = bound_ms(*rk4_cost(b, d, hd, t))
     t, b, d = k2_args[1].shape
     k2_bound, k2_by = bound_ms(*gru_cost(b, d, t))
-    say(f"K1 rk4_motion B=64 D=H=16 T=16: kernel {k1_ms * 1e3:.2f} us on the "
-        f"device, {k1_call_ms * 1e3:.2f} us per wrapper call; plain "
-        f"{k1_plain_ms * 1e3:.1f} us; bound {k1_bound * 1e3:.4f} us ({k1_by}); {card}")
-    say(f"K2 gru_motion B=64 D=16 T=16: kernel {k2_ms * 1e3:.2f} us on the "
-        f"device, {k2_call_ms * 1e3:.2f} us per wrapper call; plain "
-        f"{k2_plain_ms * 1e3:.1f} us; cuDNN nn.GRU {k2_lib_ms * 1e3:.2f} us "
-        f"(max|nn.GRU-plain| {lib_err:.2e}); bound {k2_bound * 1e3:.4f} us "
-        f"({k2_by}); {card}")
+    turns = lambda runs: " / ".join(f"{r * 1e3:.2f}" for r in runs)
+    say(f"K1 rk4_motion B=64 D=H=16 T=16: warp kernel {k1_ms * 1e3:.2f} us on "
+        f"the device, wide {k1_wide_ms * 1e3:.2f} us (in turns "
+        f"warp/wide/wide/warp: {turns(k1_turns)}); {k1_call_ms * 1e3:.2f} us "
+        f"per wrapper call; plain {k1_plain_ms * 1e3:.1f} us; bound "
+        f"{k1_bound * 1e3:.4f} us ({k1_by}); {card}")
+    say(f"K2 gru_motion B=64 D=16 T=16: warp kernel {k2_ms * 1e3:.2f} us on "
+        f"the device, wide {k2_wide_ms * 1e3:.2f} us (in turns "
+        f"warp/wide/wide/warp: {turns(k2_turns)}); {k2_call_ms * 1e3:.2f} us "
+        f"per wrapper call; plain {k2_plain_ms * 1e3:.1f} us; cuDNN nn.GRU "
+        f"{k2_lib_ms * 1e3:.2f} us (max|nn.GRU-plain| {lib_err:.2e}); bound "
+        f"{k2_bound * 1e3:.4f} us ({k2_by}); {card}")
 
     serving = {}
     for name, sess in (("ucf_ode", sess_ode), ("mnist_gru", sess_gru)):
@@ -343,20 +394,24 @@ def main() -> int:
             say(f"{name} sample_videos(64): {ms:.3f} ms, {64e3 / ms:.0f} clips/s; "
                 f"trunk alone (1024 frames) {trunk_ms:.3f} ms ({tag}); {card}")
 
+    worst = lambda kernel: max(e for (k, _), e in errs.items() if k == kernel)
     record = {"kernels": [
-        {"name": "rk4_motion", "route": "cuda",
+        {"name": "rk4_motion", "route": "cuda", "variant": "warp",
          "source": "ganode_tpu_torch/csrc/motion_kernels.cu",
          "replaces": "ganode_tpu/ops/fused_rk4.py:106",
-         "launches": launches_k1, "max_abs_err": errs["rk4"],
-         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": None, "call_ms": k1_call_ms},
-        {"name": "gru_motion", "route": "cuda",
+         "launches": launches_k1, "max_abs_err": worst("K1 rk4_motion"),
+         "ms": k1_ms, "ms_wide": k1_wide_ms, "call_ms": k1_call_ms,
+         "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
+         "library_ms": None},
+        {"name": "gru_motion", "route": "cuda", "variant": "warp",
          "source": "ganode_tpu_torch/csrc/motion_kernels.cu",
          "replaces": "ganode_tpu/ops/fused_gru.py:90",
-         "launches": launches_k2, "max_abs_err": errs["gru"],
-         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": k2_lib_ms, "call_ms": k2_call_ms},
-    ], "serving_ms": serving, "card": smi}
+         "launches": launches_k2, "max_abs_err": worst("K2 gru_motion"),
+         "ms": k2_ms, "ms_wide": k2_wide_ms, "call_ms": k2_call_ms,
+         "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
+         "library_ms": k2_lib_ms},
+    ], "max_abs_err_by_variant": {f"{k} {v}": e for (k, v), e in errs.items()},
+        "serving_ms": serving, "card": smi}
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

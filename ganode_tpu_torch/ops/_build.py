@@ -8,13 +8,15 @@ place with ``os.replace``, so concurrent builders never see a half-written file
 and no lock file exists. Nothing here runs at import time.
 
 A missing ``nvcc`` or a failed build raises with the compiler's output; there
-is no fallback.
+is no fallback. What ``ptxas -v`` said of each kernel (registers, stack,
+spills) is kept beside the library and read back by ``ptxas_report``.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -49,6 +51,22 @@ def find_nvcc() -> str:
         "CUDA toolkit is needed to build ganode_tpu_torch/csrc/motion_kernels.cu")
 
 
+# Lane counts of the warp variants' row groups (a template parameter of each
+# warp kernel in csrc/motion_kernels.cu).
+WARP_LANES = (16, 32)
+
+
+def choose_variant(*widths: int) -> tuple[str, int]:
+    """The kernel variant for a row of these widths: ``("warp", W)``, W the
+    fewest lanes in ``WARP_LANES`` that hold every width, else ``("wide", 0)``
+    (shared-memory tiles, any width that fits a block)."""
+    widest = max(widths)
+    for lanes in WARP_LANES:
+        if widest <= lanes:
+            return "warp", lanes
+    return "wide", 0
+
+
 def library_path() -> Path:
     digest = hashlib.sha256(SOURCE.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
@@ -66,16 +84,24 @@ def _compile(out: Path) -> str:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
             f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{log}")
+    _log_path(out).write_text(log)
     os.replace(tmp, out)
     return log
 
 
+def _log_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.txt")
+
+
 def _bind(lib):
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ganode_rk4_motion.argtypes = [vp] * 6 + [i32] * 4 + [f32, vp]
-    lib.ganode_rk4_motion.restype = i32
-    lib.ganode_gru_motion.argtypes = [vp] * 7 + [i32] * 3 + [vp]
-    lib.ganode_gru_motion.restype = i32
+    lib.ganode_rk4_motion_warp.argtypes = [vp] * 6 + [i32] * 4 + [f32, i32, vp]
+    lib.ganode_rk4_motion_wide.argtypes = [vp] * 6 + [i32] * 4 + [f32, vp]
+    lib.ganode_gru_motion_warp.argtypes = [vp] * 7 + [i32] * 4 + [vp]
+    lib.ganode_gru_motion_wide.argtypes = [vp] * 7 + [i32] * 3 + [vp]
+    for name in ("rk4_motion_warp", "rk4_motion_wide", "gru_motion_warp",
+                 "gru_motion_wide"):
+        getattr(lib, f"ganode_{name}").restype = i32
     lib.ganode_error_string.argtypes = [i32]
     lib.ganode_error_string.restype = ctypes.c_char_p
     return lib
@@ -88,11 +114,37 @@ def load_library():
         return _lib
     path = library_path()
     t0 = time.perf_counter()
-    if not path.exists():
+    if path.exists():
+        log = _log_path(path)
+        build_log = log.read_text() if log.exists() else ""
+    else:
         build_log = _compile(path)
     build_seconds = time.perf_counter() - t0
     _lib = _bind(ctypes.CDLL(str(path)))
     return _lib
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(log: str) -> dict:
+    """Per kernel (mangled name) what ``ptxas -v`` reported: ``registers``,
+    ``stack``, ``spill_stores`` and ``spill_loads`` in bytes."""
+    report, name = {}, None
+    for line in log.splitlines():
+        if m := _ENTRY.search(line):
+            name = m.group(1)
+            report[name] = {}
+        elif name and (m := _FRAME.search(line)):
+            report[name].update(stack=int(m.group(1)),
+                                spill_stores=int(m.group(2)),
+                                spill_loads=int(m.group(3)))
+        elif name and (m := _REGS.search(line)):
+            report[name]["registers"] = int(m.group(1))
+    return report
 
 
 def check_inputs(tensors: dict, shapes: dict):
@@ -100,8 +152,9 @@ def check_inputs(tensors: dict, shapes: dict):
     is float32 and contiguous, and lies on the first tensor's device."""
     device = next(iter(tensors.values())).device
     for name, a in tensors.items():
-        if tuple(a.shape) != shapes[name] or min(shapes[name]) < 1:
-            raise ValueError(f"{name} must have shape {shapes[name]} (sizes >= 1), "
+        shape = shapes[name]
+        if a.shape != shape or min(shape) < 1:
+            raise ValueError(f"{name} must have shape {shape} (sizes >= 1), "
                              f"got {tuple(a.shape)}")
         if a.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {a.dtype}")
@@ -109,6 +162,14 @@ def check_inputs(tensors: dict, shapes: dict):
             raise ValueError(f"{name} is on {a.device}, the others on {device}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def raw_stream(device: torch.device) -> int:
+    """The handle of the current CUDA stream on ``device``, for a launcher.
+    The raw call PyTorch's own generated kernels use: a few hundred ns on the
+    host, where ``torch.cuda.current_stream(device).cuda_stream`` builds a
+    Python ``Stream`` object each call."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(err: int, what: str):

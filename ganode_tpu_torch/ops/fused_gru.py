@@ -7,12 +7,15 @@ the torch-semantics GRU with gates in ``[r | z | n]`` blocks,
     n = tanh(gi_n + r * gh_n); h' = (1 - z) n + z h
 
 with ``gi = e_t @ wi + bi`` and ``gh = h @ wh + bh`` both computed inside the
-kernel (``csrc/motion_kernels.cu``, ``gru_motion_kernel``).
+kernel (``csrc/motion_kernels.cu``): ``gru_warp_kernel``, one row per group of
+16 or 32 lanes, when D <= 32 (every config), else ``gru_wide_kernel``,
+shared-memory tiles (``_build.choose_variant``).
 
 ``fused_gru_motion`` takes tensors on either device. On the CPU it runs the
 plain version, ``reference_gru_motion``; on a CUDA device it launches the
 kernel or raises. Gradients differentiate the plain version, as the JAX
-package's ``_bwd`` does (no backward kernel).
+package's ``_bwd`` does (no backward kernel); a call that needs none launches
+without ``torch.autograd.Function``.
 """
 from __future__ import annotations
 
@@ -20,9 +23,10 @@ import torch
 
 from . import _build
 
-# Kernel launches since the last reset; chip_smoke.py reads it to show the
-# serving path went through the kernel.
+# Kernel launches since the last reset, in all and by variant; chip_smoke.py
+# reads them to show the serving path went through the kernel.
 launches = 0
+launches_by_variant = {"warp": 0, "wide": 0}
 
 
 def reference_gru_motion(h0, e, wi, wh, bi, bh):
@@ -43,17 +47,27 @@ def reference_gru_motion(h0, e, wi, wh, bi, bh):
     return torch.stack(hs)
 
 
-def _launch(h0, e, wi, wh, bi, bh):
+def _launch(h0, e, wi, wh, bi, bh, variant=None):
+    """Launch K2 on validated CUDA inputs. ``variant`` ("warp" or "wide")
+    overrides ``_build.choose_variant``, for tests and timing."""
     global launches
     lib = _build.load_library()
     t, b, d = e.shape
+    chosen, lanes = _build.choose_variant(d)
+    variant = variant or chosen
     out = torch.empty((t, b, d), dtype=torch.float32, device=e.device)
-    stream = torch.cuda.current_stream(e.device).cuda_stream
-    err = lib.ganode_gru_motion(
-        h0.data_ptr(), e.data_ptr(), wi.data_ptr(), wh.data_ptr(),
-        bi.data_ptr(), bh.data_ptr(), out.data_ptr(), b, d, t, stream)
-    _build.check(err, "gru_motion")
+    stream = _build.raw_stream(e.device)
+    ptrs = (h0.data_ptr(), e.data_ptr(), wi.data_ptr(), wh.data_ptr(),
+            bi.data_ptr(), bh.data_ptr(), out.data_ptr())
+    if variant == "warp":
+        err = lib.ganode_gru_motion_warp(*ptrs, b, d, t, lanes, stream)
+    elif variant == "wide":
+        err = lib.ganode_gru_motion_wide(*ptrs, b, d, t, stream)
+    else:
+        raise ValueError(f"unknown variant {variant!r}")
+    _build.check(err, f"gru_motion ({variant})")
     launches += 1
+    launches_by_variant[variant] += 1
     return out
 
 
@@ -80,7 +94,8 @@ def fused_gru_motion(h0, e, wi, wh, bi, bh):
     -> ``(T, B, D)`` of ``h_1..h_T``.
 
     CUDA tensors launch the kernel (one launch, no synchronisation); CPU
-    tensors run ``reference_gru_motion``.
+    tensors run ``reference_gru_motion``. The variant follows from D
+    (``_build.choose_variant``).
     """
     if e.ndim != 3:
         raise ValueError(f"e must be (T, B, D), got {tuple(e.shape)}")
@@ -93,4 +108,7 @@ def fused_gru_motion(h0, e, wi, wh, bi, bh):
         return reference_gru_motion(h0, e, wi, wh, bi, bh)
     if e.device.type != "cuda":
         raise ValueError(f"fused_gru_motion runs on cuda or cpu, not {e.device}")
-    return _FusedGRU.apply(h0, e, wi, wh, bi, bh)
+    if torch.is_grad_enabled() and any(
+            a.requires_grad for a in (h0, e, wi, wh, bi, bh)):
+        return _FusedGRU.apply(h0, e, wi, wh, bi, bh)
+    return _launch(h0, e, wi, wh, bi, bh)

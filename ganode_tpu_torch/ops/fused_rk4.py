@@ -3,12 +3,15 @@
 Port of ``ganode_tpu/ops/fused_rk4.py`` (Pallas ``_rk4_kernel``): the
 trajectory of ``f(y) = tanh(y @ w1 + b1) @ w2 + b2`` over a uniform grid, all
 4 (T-1) right-hand-side evaluations and the output stack in one launch
-(``csrc/motion_kernels.cu``, ``rk4_motion_kernel``).
+(``csrc/motion_kernels.cu``): ``rk4_warp_kernel``, one row per group of 16 or
+32 lanes with everything in registers, when max(D, H) <= 32 (every config),
+else ``rk4_wide_kernel``, shared-memory tiles (``_build.choose_variant``).
 
 ``fused_rk4_motion`` takes tensors on either device. On the CPU it runs the
 plain version, ``reference_rk4_motion``; on a CUDA device it launches the
 kernel or raises. Gradients, as in the JAX package's ``_bwd``, differentiate
-the plain version (no backward kernel).
+the plain version (no backward kernel); a call that needs none launches
+without ``torch.autograd.Function``.
 """
 from __future__ import annotations
 
@@ -16,9 +19,10 @@ import torch
 
 from . import _build
 
-# Kernel launches since the last reset; chip_smoke.py reads it to show the
-# serving path went through the kernel.
+# Kernel launches since the last reset, in all and by variant; chip_smoke.py
+# reads them to show the serving path went through the kernel.
 launches = 0
+launches_by_variant = {"warp": 0, "wide": 0}
 
 
 def reference_rk4_motion(x, w1, b1, w2, b2, ts):
@@ -48,31 +52,45 @@ def uniform_step(ts: torch.Tensor) -> float:
     The kernel, like the TPU kernel (``fused_rk4.py:104``), steps by the first
     spacing only, so a non-uniform grid would silently differ from the plain
     version: it is refused. Reads ``ts`` on the host (a sync if it lies on the
-    card; the motion sampler keeps it on the CPU).
+    card; the motion sampler keeps it on the CPU) and checks it in Python
+    floats, each spacing within ``1e-7 + 1e-5 |h|`` of ``h``.
     """
     if ts.ndim != 1 or ts.shape[0] < 2:
         raise ValueError(f"ts must be 1-D with at least 2 points, got {tuple(ts.shape)}")
-    t = ts.detach().to("cpu", torch.float32)
+    t = ts.tolist()
     h = t[1] - t[0]
-    dt = t[1:] - t[:-1]
-    if not torch.allclose(dt, h.expand_as(dt), rtol=1e-5, atol=1e-7):
+    tol = 1e-7 + 1e-5 * abs(h)
+    # `not <=` so that a NaN spacing is refused too
+    if not all(abs((b - a) - h) <= tol for a, b in zip(t, t[1:])):
         raise ValueError(
             "fused_rk4_motion takes a uniform grid only (the kernel steps by "
-            f"ts[1] - ts[0]); got spacings {dt.tolist()}")
-    return float(h)
+            f"ts[1] - ts[0]); got spacings {[b - a for a, b in zip(t, t[1:])]}")
+    return h
 
 
-def _launch(x, w1, b1, w2, b2, n_out: int, h: float):
+def _launch(x, w1, b1, w2, b2, n_out: int, h: float, variant=None):
+    """Launch K1 on validated CUDA inputs. ``variant`` ("warp" or "wide")
+    overrides ``_build.choose_variant``, for tests and timing."""
     global launches
     lib = _build.load_library()
     b, d = x.shape
+    hd = w1.shape[1]
+    chosen, lanes = _build.choose_variant(d, hd)
+    variant = variant or chosen
     out = torch.empty((n_out, b, d), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.ganode_rk4_motion(
-        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), out.data_ptr(), b, d, w1.shape[1], n_out, h, stream)
-    _build.check(err, "rk4_motion")
+    stream = _build.raw_stream(x.device)
+    ptrs = (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), out.data_ptr())
+    if variant == "warp":
+        err = lib.ganode_rk4_motion_warp(*ptrs, b, d, hd, n_out, h, lanes,
+                                         stream)
+    elif variant == "wide":
+        err = lib.ganode_rk4_motion_wide(*ptrs, b, d, hd, n_out, h, stream)
+    else:
+        raise ValueError(f"unknown variant {variant!r}")
+    _build.check(err, f"rk4_motion ({variant})")
     launches += 1
+    launches_by_variant[variant] += 1
     return out
 
 
@@ -103,6 +121,7 @@ def fused_rk4_motion(x, w1, b1, w2, b2, ts):
 
     CUDA tensors launch the kernel (one launch, no synchronisation); CPU
     tensors run ``reference_rk4_motion``. ``ts`` may lie on either device.
+    The variant follows from the widths (``_build.choose_variant``).
     """
     if x.ndim != 2 or w1.ndim != 2:
         raise ValueError(f"x and w1 must be 2-D, got {tuple(x.shape)} and "
@@ -116,4 +135,7 @@ def fused_rk4_motion(x, w1, b1, w2, b2, ts):
         return reference_rk4_motion(x, w1, b1, w2, b2, ts)
     if x.device.type != "cuda":
         raise ValueError(f"fused_rk4_motion runs on cuda or cpu, not {x.device}")
-    return _FusedRK4.apply(x, w1, b1, w2, b2, ts, h)
+    if torch.is_grad_enabled() and any(
+            a.requires_grad for a in (x, w1, b1, w2, b2)):
+        return _FusedRK4.apply(x, w1, b1, w2, b2, ts, h)
+    return _launch(x, w1, b1, w2, b2, ts.shape[0], h)
