@@ -24,22 +24,42 @@ printing one line before the next starts:
 7. times at the serving shape each kernel's warp variant and the wide one
    (the earlier shared-memory design) in turns (warp, wide, wide, warp), the
    wrapper call, the plain version, cuDNN's GRU as K2's yardstick, and
-   ``sample_videos(64)`` for both configs, with CUDA events after warm-up.
+   ``sample_videos(64)`` for both configs, with CUDA events after warm-up;
+8. trains ``ucf_ode`` at full width through ``build_trainer`` (B=32, T=16,
+   64x64x3, ngf = ndf = 64, ``VideoDiscriminator(ksize=4)``, d_iters 2) on
+   uniform random batches: 2 warm-up steps, then N timed steps with cuDNN's
+   TF32 off and on, requiring K1's warp counter to rise by exactly 6 per step
+   and finite losses; times each phase (D_img, D_vid, G update), the peak
+   memory, and K1's backward (the plain recurrence's VJP) alone;
+9. checks the G update on the card, on a freshly initialised full-width
+   trainer and one noise tape: G's gradients through K1 against those through
+   ``reference_rk4_motion`` given K1's forward values (the gradient path
+   alone), and against those with the motion computed by
+   ``reference_rk4_motion`` (beside the same update with that motion moved by
+   1e-6, the change the kernel's float32 error is of);
+10. takes one whole ``train_step`` at reduced width (ngf = ndf = 8, B = 4,
+    T = 16) on the card and on the CPU in float64, from one state carried
+    across after a CPU step and one noise tape, and holds the losses and every
+    net's parameters and statistics together;
+11. trains ``mnist_gru`` at full width for 2 steps, K2's counter +6 per step.
 
 Float32 throughout. Matrix products run in full float32
 (``torch.backends.cuda.matmul.allow_tf32 = False``); the correctness checks
-also turn TF32 off for cuDNN's convolutions, and the serving times are taken
-with cuDNN's TF32 both off and on (PyTorch's default).
+also turn TF32 off for cuDNN's convolutions, and the serving and training
+times are taken with cuDNN's TF32 both off and on (PyTorch's default).
 
 The last two lines of standard output are one JSON object with a record per
-kernel and ``{"ok": true, "device": {...}}``. Any failure exits non-zero
-before those lines. Writes nothing but ``ganode_tpu_torch/_build/``.
+kernel and the training run, and ``{"ok": true, "device": {...}}``. Any
+failure exits non-zero before those lines. Writes nothing but
+``ganode_tpu_torch/_build/``.
 """
 from __future__ import annotations
 
+import copy
 import faulthandler
 import importlib.metadata
 import json
+import math
 import os
 import subprocess
 import sys
@@ -54,6 +74,20 @@ TOL_TRAJ = 1e-5    # kernel vs plain trajectories, float32 (same GPU inputs)
 # Videos after the trunk: the 1e-6-class motion difference passes through five
 # float32 (TF32 off) deconvolutions, and the CPU check sums in another order.
 TOL_VIDEO = 1e-4
+# G's gradients through K1, each tensor's max abs difference over its max abs
+# value, against the plain recurrence given K1's forward values (so only the
+# gradient path differs; cuDNN deterministic, TF32 off).
+TOL_GRAD = 1e-4
+# Against the plain motion itself the forward values differ by ~1e-6, and at
+# full width G's gradients move by ~1e-3 of their size for a change of that
+# order, whatever computes it. So that comparison is held to YARDSTICKS times
+# what the same update gives for the plain motion moved by PERTURB.
+PERTURB = 1e-6
+YARDSTICKS = 3.0
+# One train_step, card against CPU: losses, parameters and statistics after
+# conv stacks summed in another order on each device, and one Adam step.
+TOL_STEP = 1e-4
+TRAIN_STEPS = 5   # timed full-width steps per TF32 setting
 
 
 def phase(name: str):
@@ -101,6 +135,312 @@ def gru_cost(b, d, t):
 def bound_ms(ops, nbytes):
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_FLOP_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def reset_counts():
+    from ganode_tpu_torch.ops import fused_gru, fused_rk4
+
+    for m in (fused_rk4, fused_gru):
+        m.launches = 0
+        m.launches_by_variant.update(warp=0, wide=0)
+
+
+def random_batches(cfg, device, seed):
+    """Uniform [-1, 1) images ``(d_iters, B, S, S, C)`` and videos
+    ``(d_iters, B, T, S, S, C)``, as ``bench.py`` feeds its step."""
+    import torch
+
+    size = 64 if cfg.trunk == "dcgan64" else 28
+    g = torch.Generator(device).manual_seed(seed)
+    shape = (cfg.d_iters, cfg.batch_size)
+    images = torch.rand(shape + (size, size, cfg.n_channels), generator=g,
+                        device=device) * 2 - 1
+    videos = torch.rand(shape + (cfg.video_length, size, size,
+                                 cfg.n_channels), generator=g,
+                        device=device) * 2 - 1
+    return images, videos
+
+
+def backward_ms(module, motion_args, events_ms):
+    """ms per call of one kernel's backward alone (``_Fused*.backward``: the
+    plain recurrence re-run and differentiated), at the training shape."""
+    import torch
+
+    leaves = [a.detach().clone().requires_grad_() for a in motion_args[0]]
+    out = module(*leaves, *motion_args[1])
+    g = torch.randn_like(out)
+    return events_ms(lambda: torch.autograd.grad(out, leaves, g,
+                                                 retain_graph=True), 10)
+
+
+def card_vs_cpu_step(dev):
+    """One ``train_step`` of a reduced-width ``ucf_ode`` (ngf = ndf = 8, B=4,
+    T=16) from one state and one noise tape, on the card in float32 and on
+    the CPU in float64 (the plain motion) and in float32 -> (the card's max
+    |loss diff| and max |diff| over every net's parameters and statistics
+    from float64, the same two for the CPU's float32, tensors compared).
+
+    The state is carried across after one CPU step: Adam's first step from
+    zero moments is lr * sign(g), which turns the rounding of a near-zero
+    gradient into a 2 * lr difference. The reference is float64 because a
+    float32 CPU step is no closer to it than the card's: with torch 2.11 on
+    the H100 host's CPU, oneDNN's float32 path has left G's gradients further
+    from their float64 values than the card's (PERF.md §6)."""
+    import torch
+
+    import ganode_tpu_torch.models.motion as motion_mod
+    from ganode_tpu_torch.ops import fused_rk4_motion, reference_rk4_motion
+    from ganode_tpu_torch.train import build_trainer
+    from ganode_tpu_torch.utils.config import get_config
+
+    cfg_r = get_config("ucf_ode", ngf=8, ndf=8, batch_size=4)
+    ims, vids = random_batches(cfg_r, "cpu", 7)
+    tr_c = build_trainer(cfg_r, device="cpu")
+    st_c = tr_c.init_state()
+    tr_c.train_step(st_c, ims, vids, noise=tr_c.noise_tape(
+        torch.Generator().manual_seed(1), "cpu"))
+    nets = ("gen", "dis_img", "dis_vid")
+
+    def take_step(device, dtype):
+        tr = build_trainer(cfg_r, device=device)
+        st = tr.init_state()
+        for n in nets:
+            getattr(tr, n).to(dtype=dtype).load_state_dict(
+                getattr(tr_c, n).state_dict())
+            getattr(st, n).opt.load_state_dict(
+                copy.deepcopy(getattr(st_c, n).opt.state_dict()))
+        st.step = st_c.step
+        tape = [{k: v.to(dtype) if v.is_floating_point() else v
+                 for k, v in d.items()}
+                for d in tr.noise_tape(torch.Generator().manual_seed(7), device)]
+        metrics = tr.train_step(st, ims.to(device, dtype),
+                                vids.to(device, dtype), noise=tape)
+        return ({k: v.item() for k, v in metrics.items()},
+                {f"{n}.{k}": v.detach().cpu().double()
+                 for n in nets for k, v in getattr(tr, n).state_dict().items()})
+
+    m_card, s_card = take_step(dev, torch.float32)
+    m_cpu, s_cpu = take_step("cpu", torch.float32)
+    motion_mod.fused_rk4_motion = reference_rk4_motion  # float32 only
+    try:
+        m_ref, s_ref = take_step("cpu", torch.float64)
+    finally:
+        motion_mod.fused_rk4_motion = fused_rk4_motion
+
+    def errs(m, sd):
+        return (max(abs(m[k] - m_ref[k]) for k in m_ref),
+                max((sd[k] - v).abs().max().item() for k, v in s_ref.items()))
+
+    return (*errs(m_card, s_card), *errs(m_cpu, s_cpu), len(s_ref))
+
+
+def train_phases(dev, card, events_ms) -> dict:
+    """Phases 8-11 (module docstring); returns the record's training entry."""
+    import torch
+
+    import ganode_tpu_torch.models.motion as motion_mod
+    from ganode_tpu_torch.ops import (fused_gru, fused_gru_motion, fused_rk4,
+                                      fused_rk4_motion, reference_rk4_motion)
+    from ganode_tpu_torch.train import build_trainer
+    from ganode_tpu_torch.utils.config import get_config
+
+    out = {}
+    phase("train ucf_ode at full width (B=32, T=16, 64x64x3, ngf=ndf=64, "
+          "VideoDiscriminator ksize 4, d_iters 2)")
+    cfg = get_config("ucf_ode")
+    tr = build_trainer(cfg, device=dev)
+    state = tr.init_state()
+    gt = torch.Generator(dev).manual_seed(0)
+    images, videos = random_batches(cfg, dev, 0)
+    rec = {"config": "ucf_ode", "batch": cfg.batch_size, "frames": cfg.video_length,
+           "d_iters": cfg.d_iters, "card": card}
+
+    def phase_ms(n):
+        """ms per step of each phase (D_img, D_vid summed over the D
+        iterations; G), between CUDA events on the step's stream."""
+        tot = {"d_img": 0.0, "d_vid": 0.0, "g": 0.0}
+        for _ in range(n):
+            ev = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(2 * cfg.d_iters + 2)]
+            ev[0].record()
+            for i in range(cfg.d_iters):
+                tr._d_phase(state, "image", images[i], {}, gt)
+                ev[2 * i + 1].record()
+                tr._d_phase(state, "video", videos[i], {}, gt)
+                ev[2 * i + 2].record()
+            tr._g_update(state, {}, {}, gt)
+            ev[-1].record()
+            torch.cuda.synchronize()
+            for i in range(cfg.d_iters):
+                tot["d_img"] += ev[2 * i].elapsed_time(ev[2 * i + 1])
+                tot["d_vid"] += ev[2 * i + 1].elapsed_time(ev[2 * i + 2])
+            tot["g"] += ev[-2].elapsed_time(ev[-1])
+        return {k: v / n for k, v in tot.items()}
+
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        tag = "on" if tf32 else "off"
+        for _ in range(2):
+            tr.train_step(state, images, videos, generator=gt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(TRAIN_STEPS):
+            metrics = tr.train_step(state, images, videos, generator=gt)
+        b.record()
+        torch.cuda.synchronize()
+        ms = a.elapsed_time(b) / TRAIN_STEPS
+        by_variant = dict(fused_rk4.launches_by_variant)
+        rec["k1_launches_per_step"] = fused_rk4.launches / TRAIN_STEPS
+        say(f"ucf_ode train_step: K1 launches {by_variant} in {TRAIN_STEPS} "
+            f"steps, K2 {fused_gru.launches}")
+        require(by_variant == {"warp": 6 * TRAIN_STEPS, "wide": 0}
+                and fused_gru.launches == 0,
+                f"K1 did not launch exactly 6 times per step: {by_variant}")
+        losses = {k: v.item() for k, v in metrics.items()}
+        require(all(map(math.isfinite, losses.values())),
+                f"non-finite losses {losses}")
+        mem = torch.cuda.max_memory_allocated()
+        phases = phase_ms(3)
+        say(f"ucf_ode train_step (cuDNN TF32 {tag}): {ms:.3f} ms/step, "
+            f"{cfg.batch_size * 1e3 / ms:.1f} clips/s; phases per step: "
+            f"D_img {phases['d_img']:.3f} ms, D_vid {phases['d_vid']:.3f} ms, "
+            f"G {phases['g']:.3f} ms; peak memory "
+            f"{mem / 2 ** 30:.2f} GiB; losses {losses}; {card}")
+        rec[f"tf32_{tag}"] = {"ms_per_step": ms,
+                              "clips_per_s": cfg.batch_size * 1e3 / ms,
+                              "phase_ms": phases, "max_memory_bytes": mem,
+                              "losses": losses}
+
+    m = tr.gen.motion
+    l0, l1 = m.ode_fn.Dense_0, m.ode_fn.Dense_1
+    with torch.no_grad():
+        x = m.WarmupMLP_0(torch.randn((cfg.batch_size, cfg.dim_z_motion),
+                                      generator=gt, device=dev))
+    k1_args = ((x, l0.weight.t().contiguous(), l0.bias,
+                l1.weight.t().contiguous(), l1.bias),
+               (torch.linspace(0.0, 1.0, cfg.video_length),))
+    rec["k1_backward_ms"] = backward_ms(fused_rk4_motion, k1_args, events_ms)
+    share = {tag: 2 * rec["k1_backward_ms"] / rec[f"tf32_{tag}"]["ms_per_step"]
+             for tag in ("off", "on")}
+    rec["k1_backward_share"] = share
+    say(f"K1 backward (plain rk4 VJP, B={cfg.batch_size}): "
+        f"{rec['k1_backward_ms']:.3f} ms per call; two per step = "
+        f"{100 * share['off']:.1f} % of a TF32-off step, "
+        f"{100 * share['on']:.1f} % of a TF32-on step; {card}")
+
+    phase("G update on the card: K1 against the plain recurrence")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    tr0 = build_trainer(cfg, device=dev)
+    st0 = tr0.init_state()
+    noise_vid, noise_img = tr0.noise_tape(torch.Generator().manual_seed(5),
+                                          dev)[-2:]
+
+    def g_grads(motion):
+        motion_mod.fused_rk4_motion = motion
+        try:
+            return tr0._g_grads(st0, noise_vid, noise_img, None)
+        finally:
+            motion_mod.fused_rk4_motion = fused_rk4_motion
+
+    def kernel_values(*args):
+        """The kernel's forward values, the plain recurrence's gradient."""
+        plain = reference_rk4_motion(*args)
+        with torch.no_grad():
+            kernel = fused_rk4_motion(*args)
+        return plain + (kernel - plain).detach()
+
+    def perturbed(*args):
+        """The plain motion moved by PERTURB relative, about the kernel's own
+        forward error (TOL_TRAJ)."""
+        out = reference_rk4_motion(*args)
+        g = torch.Generator().manual_seed(9)
+        return out * (1 + PERTURB * torch.randn(out.shape, generator=g).to(dev))
+
+    def worst(a, b):
+        return max(((x - y).abs().max() / y.abs().max()).item()
+                   for x, y in zip(a, b))
+
+    before = fused_rk4.launches
+    loss_k, grads_k = g_grads(fused_rk4_motion)
+    loss_s, grads_s = g_grads(kernel_values)
+    loss_p, grads_p = g_grads(reference_rk4_motion)
+    loss_q, grads_q = g_grads(perturbed)
+    torch.backends.cudnn.deterministic = False
+    require(fused_rk4.launches == before + 4,
+            f"the G updates launched K1 {fused_rk4.launches - before} times, "
+            "not 2 + 2")
+    rel_wiring = worst(grads_k, grads_s)
+    rel_plain, yardstick = worst(grads_k, grads_p), worst(grads_q, grads_p)
+    say(f"G update at init, {len(grads_k)} tensors, worst max|diff|/max|ref| "
+        f"(cuDNN deterministic, TF32 off): through K1 vs the plain recurrence "
+        f"fed K1's forward values {rel_wiring:.3e} (tol {TOL_GRAD}), |loss "
+        f"diff| {abs(loss_k.item() - loss_s.item()):.3e}; through K1 vs the "
+        f"plain motion {rel_plain:.3e}, against {yardstick:.3e} for the plain "
+        f"motion moved by {PERTURB:g} (tol {YARDSTICKS} x that), |loss diff| "
+        f"{abs(loss_k.item() - loss_p.item()):.3e}")
+    require(rel_wiring < TOL_GRAD and abs(loss_k.item() - loss_s.item()) < TOL_GRAD,
+            f"K1's gradient path: {rel_wiring}")
+    require(rel_plain <= YARDSTICKS * yardstick,
+            f"K1 vs plain motion {rel_plain} > {YARDSTICKS} x {yardstick}")
+    rec["g_grad_rel_err"] = {"kernel_vs_plain_backward": rel_wiring,
+                             "kernel_vs_plain_motion": rel_plain,
+                             "plain_motion_perturbed": yardstick}
+    del tr0, st0, grads_k, grads_s, grads_p, grads_q
+
+    phase("one train_step at reduced width (ngf=ndf=8, B=4, T=16): card vs CPU")
+    torch.backends.cudnn.deterministic = True
+    err_loss, err_nets, cpu_loss, cpu_nets, n_tensors = card_vs_cpu_step(dev)
+    torch.backends.cudnn.deterministic = False
+    say(f"train_step vs the CPU's float64 step: card (float32, TF32 off, cuDNN "
+        f"deterministic) "
+        f"losses max|diff| {err_loss:.3e}, parameters and statistics "
+        f"max|diff| {err_nets:.3e} over {n_tensors} tensors (tol {TOL_STEP}); "
+        f"the CPU's float32 step {cpu_loss:.3e} and {cpu_nets:.3e}")
+    require(err_loss < TOL_STEP and err_nets < TOL_STEP,
+            f"card vs CPU: losses {err_loss}, nets {err_nets}")
+    rec["card_vs_cpu_max_abs"] = {"losses": err_loss, "nets": err_nets,
+                                  "cpu_float32_losses": cpu_loss,
+                                  "cpu_float32_nets": cpu_nets}
+    out["ucf_ode"] = rec
+
+    phase("train mnist_gru at full width (B=32, T=16, 28x28x1, ngf=ndf=64, "
+          "ksize 2): 2 steps")
+    torch.backends.cudnn.allow_tf32 = True
+    cfg_g = get_config("mnist_gru")
+    trg = build_trainer(cfg_g, device=dev)
+    stg = trg.init_state()
+    images_g, videos_g = random_batches(cfg_g, dev, 1)
+    reset_counts()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(2):
+        metrics = trg.train_step(stg, images_g, videos_g, generator=gt)
+    b.record()
+    torch.cuda.synchronize()
+    by_variant = dict(fused_gru.launches_by_variant)
+    k2_per_step = fused_gru.launches / 2
+    losses = {k: v.item() for k, v in metrics.items()}
+    say(f"mnist_gru train_step: K2 launches {by_variant} in 2 steps, K1 "
+        f"{fused_rk4.launches}; {a.elapsed_time(b) / 2:.3f} ms/step over the "
+        f"first two (cuDNN TF32 on, no warm-up); losses {losses}; {card}")
+    require(by_variant == {"warp": 12, "wide": 0} and fused_rk4.launches == 0,
+            f"K2 did not launch exactly 6 times per step: {by_variant}")
+    require(all(map(math.isfinite, losses.values())), f"losses {losses}")
+    c = trg.gen.motion.gru
+    k2_args = ((torch.randn((cfg_g.batch_size, 16), generator=gt, device=dev),
+                torch.randn((16, cfg_g.batch_size, 16), generator=gt, device=dev),
+                c.wi, c.wh, c.bi, c.bh), ())
+    k2_bwd = backward_ms(fused_gru_motion, k2_args, events_ms)
+    say(f"K2 backward (plain GRU VJP, B={cfg_g.batch_size}): {k2_bwd:.3f} ms "
+        f"per call; {card}")
+    out["mnist_gru"] = {"ms_per_step_first_two": a.elapsed_time(b) / 2,
+                        "losses": losses, "k2_launches_per_step": k2_per_step,
+                        "k2_backward_ms": k2_bwd}
+    return out
 
 
 def main() -> int:
@@ -394,6 +734,8 @@ def main() -> int:
             say(f"{name} sample_videos(64): {ms:.3f} ms, {64e3 / ms:.0f} clips/s; "
                 f"trunk alone (1024 frames) {trunk_ms:.3f} ms ({tag}); {card}")
 
+    training = train_phases(dev, card, events_ms)
+
     worst = lambda kernel: max(e for (k, _), e in errs.items() if k == kernel)
     record = {"kernels": [
         {"name": "rk4_motion", "route": "cuda", "variant": "warp",
@@ -402,16 +744,20 @@ def main() -> int:
          "launches": launches_k1, "max_abs_err": worst("K1 rk4_motion"),
          "ms": k1_ms, "ms_wide": k1_wide_ms, "call_ms": k1_call_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
-         "library_ms": None},
+         "library_ms": None,
+         "training_launches_per_step": training["ucf_ode"]["k1_launches_per_step"],
+         "backward_ms": training["ucf_ode"]["k1_backward_ms"]},
         {"name": "gru_motion", "route": "cuda", "variant": "warp",
          "source": "ganode_tpu_torch/csrc/motion_kernels.cu",
          "replaces": "ganode_tpu/ops/fused_gru.py:90",
          "launches": launches_k2, "max_abs_err": worst("K2 gru_motion"),
          "ms": k2_ms, "ms_wide": k2_wide_ms, "call_ms": k2_call_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
-         "library_ms": k2_lib_ms},
+         "library_ms": k2_lib_ms,
+         "training_launches_per_step": training["mnist_gru"]["k2_launches_per_step"],
+         "backward_ms": training["mnist_gru"]["k2_backward_ms"]},
     ], "max_abs_err_by_variant": {f"{k} {v}": e for (k, v), e in errs.items()},
-        "serving_ms": serving, "card": smi}
+        "serving_ms": serving, "training": training, "card": smi}
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

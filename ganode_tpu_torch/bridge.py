@@ -1,4 +1,5 @@
-"""JAX generator variables <-> the port generator's ``state_dict``.
+"""JAX variables <-> the port's ``state_dict``s, and a whole flax ``GANState``
+<-> the port's trainer state.
 
 The JAX side is a nested dict of numpy arrays, as
 ``jax.tree_util.tree_map(np.asarray, variables)`` gives it:
@@ -8,7 +9,9 @@ names, so a flax path ``params/main/ConvTranspose_0/kernel`` becomes the key
 the other direction, in ``ganode_tpu/compat_torch.py``:
 
 * Dense ``kernel (in, out)``             <-> Linear ``weight (out, in)`` = kernel.T
-* Conv ``kernel (kh, kw, Ci, Co)``       <-> Conv2d ``weight (Co, Ci, kh, kw)``
+* Conv ``kernel (kh, kw, Ci, Co)``       <-> Conv2d ``weight (Co, Ci, kh, kw)``;
+  3-D Conv and ``FastGradConv3D`` ``kernel (kt, kh, kw, Ci, Co)`` <->
+  Conv3d ``weight (Co, Ci, kt, kh, kw)``
 * ConvTranspose ``kernel (kh, kw, Ci, Co)`` <-> ConvTranspose2d ``weight
   (Ci, Co, kh, kw)``, **spatially flipped** as well: torch's transposed conv
   convolves with the flipped kernel, flax's runs an un-flipped correlation
@@ -29,24 +32,33 @@ _PARAM_TO_TORCH = {"scale": "weight", "bias": "bias", "kernel": "weight",
 _STAT_TO_TORCH = {"mean": "running_mean", "var": "running_var"}
 
 
+def _is_conv(module: str, rank: int) -> bool:
+    """A forward convolution's kernel: 2-D or 3-D ``Conv``, or the 3-D
+    ``FastGradConv3D``."""
+    return ((module.startswith("Conv") and rank in (4, 5))
+            or (module.startswith("FastGradConv3D") and rank == 5))
+
+
 def _kernel_to_torch(module: str, k: np.ndarray) -> np.ndarray:
-    if module.startswith("ConvTranspose"):
+    if module.startswith("ConvTranspose") and k.ndim == 4:
         return k[::-1, ::-1].transpose(2, 3, 0, 1)
-    if module.startswith("Conv"):
-        return k.transpose(3, 2, 0, 1)
-    if module.startswith("Dense"):
+    if _is_conv(module, k.ndim):  # (*spatial, Ci, Co) -> (Co, Ci, *spatial)
+        return k.transpose(k.ndim - 1, k.ndim - 2, *range(k.ndim - 2))
+    if module.startswith("Dense") and k.ndim == 2:
         return k.T
-    raise ValueError(f"no layout rule for a kernel of module {module!r}")
+    raise ValueError(f"no layout rule for a {k.ndim}-D kernel of module "
+                     f"{module!r}")
 
 
 def _kernel_from_torch(module: str, w: np.ndarray) -> np.ndarray:
-    if module.startswith("ConvTranspose"):
+    if module.startswith("ConvTranspose") and w.ndim == 4:
         return w.transpose(2, 3, 0, 1)[::-1, ::-1]
-    if module.startswith("Conv"):
-        return w.transpose(2, 3, 1, 0)
-    if module.startswith("Dense"):
+    if _is_conv(module, w.ndim):  # (Co, Ci, *spatial) -> (*spatial, Ci, Co)
+        return w.transpose(*range(2, w.ndim), 1, 0)
+    if module.startswith("Dense") and w.ndim == 2:
         return w.T
-    raise ValueError(f"no layout rule for the weight of module {module!r}")
+    raise ValueError(f"no layout rule for the {w.ndim}-D weight of module "
+                     f"{module!r}")
 
 
 def _leaves(tree: dict, prefix=()):
@@ -58,7 +70,7 @@ def _leaves(tree: dict, prefix=()):
 
 
 def jax_to_torch(variables: dict) -> dict:
-    """JAX generator variables -> a ``state_dict`` for ``load_state_dict``."""
+    """JAX module variables -> a ``state_dict`` for ``load_state_dict``."""
     sd = {}
     for path, value in _leaves(variables.get("params", {})):
         *mods, leaf = path
@@ -80,7 +92,7 @@ def jax_to_torch(variables: dict) -> dict:
 
 
 def torch_to_jax(state_dict: dict) -> dict:
-    """A port ``state_dict`` -> JAX generator variables (numpy leaves)."""
+    """A port ``state_dict`` -> JAX module variables (numpy leaves)."""
     out = {"params": {}, "batch_stats": {}}
     stat_names = {v: k for k, v in _STAT_TO_TORCH.items()}
     for key, value in state_dict.items():
@@ -105,4 +117,107 @@ def torch_to_jax(state_dict: dict) -> dict:
         node[name] = np.ascontiguousarray(a)
     if not out["batch_stats"]:
         del out["batch_stats"]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Whole train states. The JAX side is a flax ``GANState`` with numpy leaves
+# (``jax.tree_util.tree_map(np.asarray, state)``), read by attribute, so this
+# module imports nothing of flax or optax. Each net's optax state is
+# ``chain(add_decayed_weights, adam)``'s, somewhere inside which sits one
+# ``ScaleByAdamState(count, mu, nu)``; its moments are trees shaped like the
+# params and cross with the params' layout rules onto ``torch.optim.Adam``'s
+# ``exp_avg`` / ``exp_avg_sq``, and ``count`` onto its ``step``. The other
+# way, the state comes back as nested dicts:
+#
+#     {"gen" | "dis_img" | "dis_vid": {"params", "batch_stats",
+#                                      "opt_state": {"count", "mu", "nu"}},
+#      "step", "ema_params" (or None), "ada" (None)}
+# ---------------------------------------------------------------------------
+
+NETS = ("gen", "dis_img", "dis_vid")
+
+
+def _adam_state(opt_state):
+    """The ``ScaleByAdamState`` inside an optax state (tuples all the way)."""
+    if all(hasattr(opt_state, a) for a in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def _params_to_torch(tree: dict, module) -> dict:
+    """A params-shaped JAX tree -> ``{parameter name: tensor}`` of
+    ``module``'s parameters, on their devices."""
+    sd = jax_to_torch({"params": tree})
+    named = dict(module.named_parameters())
+    if sorted(sd) != sorted(named):
+        raise ValueError(f"the tree's leaves {sorted(set(sd) ^ set(named))} "
+                         "do not match the module's parameters")
+    return {k: sd[k].to(named[k].device) for k in named}
+
+
+def gan_state_to_torch(jax_state, state) -> None:
+    """Load a flax ``GANState`` (numpy leaves) into the port's ``GANState``
+    in place: each net's params and batch stats, its Adam step and moments,
+    the step count and the EMA params."""
+    if getattr(jax_state, "ada", None) is not None:
+        raise NotImplementedError("the ADA controller state waits for "
+                                  "ROADMAP M11")
+    for name in NETS:
+        src, net = getattr(jax_state, name), getattr(state, name)
+        if getattr(src, "spectral", None) is not None:
+            raise NotImplementedError("spectral-norm state waits for "
+                                      "ROADMAP M9")
+        device = next(net.module.parameters()).device
+        sd = jax_to_torch({"params": src.params,
+                           "batch_stats": src.batch_stats})
+        net.module.load_state_dict({k: v.to(device) for k, v in sd.items()},
+                                   strict=True)
+        adam = _adam_state(src.opt_state)
+        if adam is None:
+            raise ValueError(f"no Adam state (count, mu, nu) in {name}'s "
+                             "optimizer state")
+        mu = _params_to_torch(adam.mu, net.module)
+        nu = _params_to_torch(adam.nu, net.module)
+        count = float(np.asarray(adam.count))
+        for key, p in net.module.named_parameters():
+            net.opt.state[p] = {"step": torch.tensor(count),
+                                "exp_avg": mu[key], "exp_avg_sq": nu[key]}
+    state.step = int(np.asarray(jax_state.step))
+    state.ema_params = (None if jax_state.ema_params is None else
+                        _params_to_torch(jax_state.ema_params,
+                                         state.gen.module))
+
+
+def torch_gan_state_to_jax(state) -> dict:
+    """The port's ``GANState`` -> the nested-dict form above (numpy
+    leaves)."""
+    out = {}
+    for name in NETS:
+        net = getattr(state, name)
+        named = dict(net.module.named_parameters())
+        variables = torch_to_jax(net.module.state_dict())
+        adam = [net.opt.state.get(p, {}) for p in named.values()]
+        steps = {float(a["step"]) for a in adam if a}
+        if len(steps) > 1:
+            raise ValueError(f"{name}'s parameters have taken different "
+                             f"numbers of Adam steps: {sorted(steps)}")
+        moment = lambda key: torch_to_jax({
+            k: a[key] if a else torch.zeros_like(p)
+            for (k, p), a in zip(named.items(), adam)})["params"]
+        out[name] = {
+            "params": variables["params"],
+            "batch_stats": variables.get("batch_stats", {}),
+            "opt_state": {"count": np.int32(steps.pop() if steps else 0),
+                          "mu": moment("exp_avg"),
+                          "nu": moment("exp_avg_sq")}}
+    out["step"] = np.int32(state.step)
+    out["ema_params"] = (None if state.ema_params is None
+                         else torch_to_jax(state.ema_params)["params"])
+    out["ada"] = None
     return out

@@ -1,11 +1,25 @@
-"""MoCoGAN generator with pluggable motion (the generator half of
-``ganode_tpu.models``)."""
+"""MoCoGAN generator with pluggable motion, and the BatchNorm
+discriminators (twin of ``ganode_tpu.models``)."""
 from __future__ import annotations
 
 import torch
 
 from .. import resolve_device
-from .mocogan import TRUNKS, DCGANTrunk64, MNISTTrunk28, VideoGenerator
+from .mocogan import (
+    DISCRIMINATORS_NOT_PORTED,
+    IMAGE_DISCRIMINATORS,
+    TRUNKS,
+    VIDEO_DISCRIMINATORS,
+    CategoricalVideoDiscriminator,
+    DCGANTrunk64,
+    FastGradConv3D,
+    ImageDiscriminator,
+    MNISTTrunk28,
+    PatchImageDiscriminator,
+    PatchVideoDiscriminator,
+    VideoDiscriminator,
+    VideoGenerator,
+)
 from .motion import MOTION_SAMPLERS, MotionGRU, MotionODE, make_motion_sampler
 
 
@@ -30,16 +44,57 @@ def make_generator(
     moved to ``device``, so a seed gives the same weights on every device. The
     modules are built on the meta device first: no global RNG is touched.
     """
+    return _on_device(lambda: VideoGenerator(
+        make_motion_sampler(variant, dim_z_motion, **motion_kwargs),
+        n_channels=n_channels, dim_z_content=dim_z_content,
+        dim_z_category=dim_z_category, dim_z_motion=dim_z_motion,
+        video_length=video_length, ngf=ngf, trunk=trunk), seed, device)
+
+
+def _on_device(build, seed: int, device) -> torch.nn.Module:
+    """Build a module on the meta device, draw its weights on the CPU from
+    ``seed`` (``init_parameters``), then move it: a seed gives the same
+    weights on every device, and no global RNG is touched."""
     dev = resolve_device(device)
     with torch.device("meta"):
-        motion = make_motion_sampler(variant, dim_z_motion, **motion_kwargs)
-        gen = VideoGenerator(
-            motion, n_channels=n_channels, dim_z_content=dim_z_content,
-            dim_z_category=dim_z_category, dim_z_motion=dim_z_motion,
-            video_length=video_length, ngf=ngf, trunk=trunk)
-    gen = gen.to_empty(device="cpu")
-    gen.init_parameters(torch.Generator().manual_seed(seed))
-    return gen.to(dev)
+        module = build()
+    module = module.to_empty(device="cpu")
+    module.init_parameters(torch.Generator().manual_seed(seed))
+    return module.to(dev)
+
+
+def make_discriminator(kind: str, video: bool, *, n_channels: int,
+                       ndf: int = 64, ksize: int = 4, seed: int = 0,
+                       device="cuda") -> torch.nn.Module:
+    """The image (``video=False``: ``patch`` or ``full``) or video
+    (``video=True``: ``full`` or ``patch``) discriminator of
+    ``ganode_tpu/train/runner.py:67-83``, with N(0, 0.02) conv weights drawn
+    from ``seed``. ``ksize`` is the full video discriminator's kernel."""
+    if kind in DISCRIMINATORS_NOT_PORTED:
+        raise NotImplementedError(
+            f"the {kind!r} discriminators wait for ROADMAP "
+            f"{DISCRIMINATORS_NOT_PORTED[kind]}")
+    table = VIDEO_DISCRIMINATORS if video else IMAGE_DISCRIMINATORS
+    if kind not in table:
+        raise ValueError(f"unknown {'video' if video else 'image'} "
+                         f"discriminator {kind!r}; choose from "
+                         f"{sorted(table) + sorted(DISCRIMINATORS_NOT_PORTED)}")
+    kwargs = {"ksize": ksize} if table[kind] is VideoDiscriminator else {}
+    return _on_device(lambda: table[kind](n_channels=n_channels, ndf=ndf,
+                                          **kwargs), seed, device)
+
+
+def discriminators_for_config(config, *, device="cuda"):
+    """``(dis_img, dis_vid)`` as ``ganode_tpu.train.runner.build_trainer``
+    builds them for ``config``, their weights drawn from ``config.seed + 1``
+    and ``config.seed + 2`` (the generator's from ``config.seed``)."""
+    common = dict(n_channels=config.n_channels, ndf=config.ndf,
+                  device=device)
+    return (make_discriminator(config.image_disc, False,
+                               seed=config.seed + 1, **common),
+            make_discriminator(config.video_disc, True,
+                               ksize=config.video_disc_ksize,
+                               seed=config.seed + 2, **common))
 
 
 def generator_for_config(config, *, device="cuda") -> VideoGenerator:
@@ -61,14 +116,22 @@ def generator_for_config(config, *, device="cuda") -> VideoGenerator:
 
 
 __all__ = [
+    "CategoricalVideoDiscriminator",
     "DCGANTrunk64",
+    "FastGradConv3D",
+    "ImageDiscriminator",
     "MNISTTrunk28",
     "MOTION_SAMPLERS",
     "MotionGRU",
     "MotionODE",
+    "PatchImageDiscriminator",
+    "PatchVideoDiscriminator",
     "TRUNKS",
+    "VideoDiscriminator",
     "VideoGenerator",
+    "discriminators_for_config",
     "generator_for_config",
+    "make_discriminator",
     "make_generator",
     "make_motion_sampler",
 ]

@@ -1,5 +1,5 @@
-"""MoCoGAN video generator with a pluggable motion sampler (twin of the
-generator half of ``ganode_tpu/models/mocogan.py``).
+"""MoCoGAN video generator with a pluggable motion sampler, and the BatchNorm
+discriminators (twin of ``ganode_tpu/models/mocogan.py``).
 
 Layout: the public samplers keep the JAX package's channels-last layout,
 images ``(B, H, W, C)`` and videos ``(B, T, H, W, C)``. Inside, the trunks are
@@ -11,9 +11,12 @@ z_category (one-hot, optional) || z_motion (per frame)]``, decoded by a 2-D
 deconv trunk applied to all ``n * T`` frames at once.
 
 Submodules carry the flax names (``ConvTranspose_0``, ``BatchNorm_0``,
-``Conv_0``, ``motion``, ``main``) so ``ganode_tpu_torch.bridge`` maps the JAX
-variables onto ``state_dict`` keys by name. The discriminators wait for ROADMAP
-M5; the dcgan128 trunk for M9; the gres64 and odegres64 trunks for M13.
+``Conv_0``, ``FastGradConv3D_0``, ``motion``, ``main``) so
+``ganode_tpu_torch.bridge`` maps the JAX variables onto ``state_dict`` keys by
+name. BatchNorm has flax's semantics (``nn.layers.BatchNorm``): train mode
+matches flax ``apply(train=True, mutable=["batch_stats"])``, running variance
+included. The dcgan128 trunk and the spectral-norm discriminators wait for
+ROADMAP M9; the gres64 and odegres64 trunks for M13.
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..nn.layers import BatchNorm, Noise, leaky_relu
+from ..ops import conv3d_first
 from .motion import draw_normal
 
 
@@ -31,9 +36,20 @@ def _deconv(in_ch: int, out_ch: int, kernel: int = 4, stride: int = 2,
                               bias=False)
 
 
-def _bn(ch: int) -> nn.BatchNorm2d:
+def _bn(ch: int) -> BatchNorm:
     # flax momentum 0.9 (weight of the old running value) == torch 0.1
-    return nn.BatchNorm2d(ch, eps=1e-5, momentum=0.1)
+    return BatchNorm(ch, eps=1e-5, momentum=0.1)
+
+
+def _dcgan_init(module: nn.Module, generator: torch.Generator):
+    """DCGAN init, as the JAX package has it: N(0, 0.02) conv kernels;
+    BatchNorm scale 1, bias 0, running stats reset."""
+    for m in module.modules():
+        if isinstance(m, (nn.ConvTranspose2d, nn.Conv2d, nn.Conv3d,
+                          FastGradConv3D)):
+            nn.init.normal_(m.weight, 0.0, 0.02, generator=generator)
+        elif isinstance(m, BatchNorm):
+            m.reset_parameters()
 
 
 class _DeconvPyramid(nn.Module):
@@ -50,16 +66,8 @@ class _DeconvPyramid(nn.Module):
             self.add_module(f"BatchNorm_{i}", _bn(chans[i + 1]))
 
     def init_parameters(self, generator: torch.Generator):
-        """DCGAN init, as the JAX package has it: N(0, 0.02) convs (the
-        subclass's last layer too); BatchNorm scale 1, bias 0, running stats
-        reset."""
-        for m in self.modules():
-            if isinstance(m, (nn.ConvTranspose2d, nn.Conv2d)):
-                nn.init.normal_(m.weight, 0.0, 0.02, generator=generator)
-            elif isinstance(m, nn.BatchNorm2d):
-                nn.init.ones_(m.weight)
-                nn.init.zeros_(m.bias)
-                m.reset_running_stats()
+        """``_dcgan_init``, the subclass's last layer included."""
+        _dcgan_init(self, generator)
 
     def pyramid(self, z: torch.Tensor) -> torch.Tensor:
         h = z[:, :, None, None]
@@ -156,6 +164,28 @@ class VideoGenerator(nn.Module):
             one_hot = F.one_hot(labels, self.dim_z_category).to(z_content.dtype)
         return z_content, one_hot, labels
 
+    def draw_noise(self, n: int, what: str, generator) -> dict:
+        """The noise one ``sample_videos(n)`` (``what="videos"``) or
+        ``sample_images(n)`` (``"images"``) consumes, drawn from
+        ``generator`` on its device, as keyword arguments for that call: the
+        motion sampler's, ``z_content``, ``labels`` with categories, and
+        ``frame_idx`` for images. Drawn on the CPU, it replays one sample on
+        any device."""
+        if what not in ("videos", "images"):
+            raise ValueError(f"what must be 'videos' or 'images', not {what!r}")
+        dev = generator.device
+        t = self.video_length
+        noise = self.motion.draw_noise(n, t, generator)
+        noise["z_content"] = draw_normal((n, self.dim_z_content), generator,
+                                         dev)
+        if self.dim_z_category > 0:
+            noise["labels"] = torch.randint(0, self.dim_z_category, (n,),
+                                            generator=generator, device=dev)
+        if what == "images":
+            noise["frame_idx"] = torch.randint(0, t, (n,),
+                                               generator=generator, device=dev)
+        return noise
+
     def sample_z_video(self, n: int, video_len: int, *, generator=None,
                        z_content=None, labels=None, **motion_noise):
         """Per-frame latents ``(n * video_len, dim_z)`` + category labels (or
@@ -202,3 +232,192 @@ class VideoGenerator(nn.Module):
     def forward(self, n: int, **kwargs):
         """Default entry: ``sample_videos``."""
         return self.sample_videos(n, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# Discriminators (``ganode_tpu/models/mocogan.py:280-512``). Each takes the JAX
+# layout, images ``(B, H, W, C)`` or videos ``(B, T, H, W, C)``, runs NCHW /
+# NCDHW inside, and returns ``(logits, aux)``: the last layer's output moved
+# to channels-last and squeezed of every size-1 axis, as ``jnp.squeeze`` does
+# (a batch of one loses its batch axis too). Train mode normalises by batch
+# statistics and advances the running ones, as the JAX modules' default
+# ``train=True`` does. ``generator`` feeds the additive-noise layers, which no
+# config turns on.
+# ---------------------------------------------------------------------------
+
+
+def _conv2d(in_ch: int, out_ch: int, k: int = 4, s: int = 2,
+            p: int = 1) -> nn.Conv2d:
+    return nn.Conv2d(in_ch, out_ch, k, s, p, bias=False)
+
+
+def _conv3d(in_ch: int, out_ch: int, k, s, p) -> nn.Conv3d:
+    return nn.Conv3d(in_ch, out_ch, k, s, p, bias=False)
+
+
+def _squeeze(h: torch.Tensor) -> torch.Tensor:
+    """NC... -> channels-last, then every size-1 axis dropped."""
+    return h.movedim(1, -1).squeeze()
+
+
+class FastGradConv3D(nn.Module):
+    """First video-discriminator conv: kernel 4x4x4, stride (1, 2, 2),
+    padding (0, 1, 1), no bias (``ops.conv3d_first``). Named as flax names it,
+    so its weight is ``FastGradConv3D_0.weight``."""
+
+    def __init__(self, in_ch: int, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(features, in_ch, 4, 4, 4))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv3d_first(x, self.weight)
+
+
+class _Discriminator(nn.Module):
+    def __init__(self, use_noise: bool, noise_sigma: float | None):
+        super().__init__()
+        # one layer serves every call site: it holds no parameters
+        self.noise = Noise(use_noise, noise_sigma or 0.0)
+
+    def init_parameters(self, generator: torch.Generator):
+        _dcgan_init(self, generator)
+
+
+class ImageDiscriminator(_Discriminator):
+    """64x64 image discriminator -> one logit per image."""
+
+    def __init__(self, n_channels: int = 3, ndf: int = 64,
+                 use_noise: bool = False, noise_sigma: float | None = None):
+        super().__init__(use_noise, noise_sigma)
+        chans = (n_channels, ndf, ndf * 2, ndf * 4, ndf * 8)
+        for i in range(4):
+            self.add_module(f"Conv_{i}", _conv2d(chans[i], chans[i + 1]))
+        for i in range(3):
+            self.add_module(f"BatchNorm_{i}", _bn(chans[i + 2]))
+        self.Conv_4 = _conv2d(ndf * 8, 1, 4, 1, 0)
+
+    def forward(self, x: torch.Tensor, *, generator=None):
+        noise = lambda h: self.noise(h, generator=generator)
+        h = leaky_relu(self.Conv_0(noise(x.permute(0, 3, 1, 2))))
+        for i in range(3):
+            h = getattr(self, f"Conv_{i + 1}")(noise(h))
+            h = leaky_relu(getattr(self, f"BatchNorm_{i}")(h))
+        return _squeeze(self.Conv_4(h)), None
+
+
+class PatchImageDiscriminator(_Discriminator):
+    """Patch image discriminator -> a logit map (4x4 at 64x64, one logit at
+    28x28)."""
+
+    def __init__(self, n_channels: int = 3, ndf: int = 64,
+                 use_noise: bool = False, noise_sigma: float | None = None):
+        super().__init__(use_noise, noise_sigma)
+        chans = (n_channels, ndf, ndf * 2, ndf * 4, 1)
+        for i in range(4):
+            self.add_module(f"Conv_{i}", _conv2d(chans[i], chans[i + 1]))
+        for i in range(2):
+            self.add_module(f"BatchNorm_{i}", _bn(chans[i + 2]))
+
+    def forward(self, x: torch.Tensor, *, generator=None):
+        noise = lambda h: self.noise(h, generator=generator)
+        h = leaky_relu(self.Conv_0(noise(x.permute(0, 3, 1, 2))))
+        for i in range(2):
+            h = getattr(self, f"Conv_{i + 1}")(noise(h))
+            h = leaky_relu(getattr(self, f"BatchNorm_{i}")(h))
+        return _squeeze(self.Conv_3(noise(h))), None
+
+
+_K3, _S3, _P3 = (4, 4, 4), (1, 2, 2), (0, 1, 1)
+
+
+class PatchVideoDiscriminator(_Discriminator):
+    """3-D patch video discriminator, input ``(B, T, H, W, C)``."""
+
+    def __init__(self, n_channels: int = 3, ndf: int = 64,
+                 use_noise: bool = False, noise_sigma: float | None = None):
+        super().__init__(use_noise, noise_sigma)
+        self.FastGradConv3D_0 = FastGradConv3D(n_channels, ndf)
+        chans = (ndf, ndf * 2, ndf * 4, 1)
+        for i in range(3):
+            self.add_module(f"Conv_{i}",
+                            _conv3d(chans[i], chans[i + 1], _K3, _S3, _P3))
+        for i in range(2):
+            self.add_module(f"BatchNorm_{i}", _bn(chans[i + 1]))
+
+    def forward(self, x: torch.Tensor, *, generator=None):
+        noise = lambda h: self.noise(h, generator=generator)
+        h = leaky_relu(self.FastGradConv3D_0(noise(x.permute(0, 4, 1, 2, 3))))
+        for i in range(2):
+            h = getattr(self, f"Conv_{i}")(noise(h))
+            h = leaky_relu(getattr(self, f"BatchNorm_{i}")(h))
+        return _squeeze(self.Conv_2(h)), None
+
+
+class VideoDiscriminator(_Discriminator):
+    """Full video discriminator with a cubic ``ksize`` kernel (2 for 28x28
+    clips, 4 for 64x64), input ``(B, T, H, W, C)``. Five unpadded time convs
+    each take ``ksize - 1`` frames: a clip shorter than ``5 * ksize - 4``
+    frames is refused. At ``ksize=4`` the first conv is ``FastGradConv3D_0``
+    and the others are ``Conv_0..3``; otherwise they are ``Conv_0..4``."""
+
+    def __init__(self, n_channels: int = 3, n_output_neurons: int = 1,
+                 ndf: int = 64, ksize: int = 4, use_noise: bool = False,
+                 noise_sigma: float | None = None):
+        super().__init__(use_noise, noise_sigma)
+        self.ksize = ksize
+        k = (ksize,) * 3
+        if ksize == 4:
+            self.FastGradConv3D_0 = FastGradConv3D(n_channels, ndf)
+        else:
+            self.Conv_0 = _conv3d(n_channels, ndf, k, _S3, _P3)
+        j = 0 if ksize == 4 else 1  # index of the first BatchNorm'd conv
+        self._names = (["FastGradConv3D_0" if ksize == 4 else "Conv_0"]
+                       + [f"Conv_{j + i}" for i in range(4)])
+        chans = (ndf, ndf * 2, ndf * 4, ndf * 8)
+        for i in range(3):
+            self.add_module(self._names[i + 1],
+                            _conv3d(chans[i], chans[i + 1], k, _S3, _P3))
+            self.add_module(f"BatchNorm_{i}", _bn(chans[i + 1]))
+        self.add_module(self._names[4],
+                        _conv3d(ndf * 8, n_output_neurons, k, 1, 0))
+
+    def forward(self, x: torch.Tensor, *, generator=None):
+        min_t = 5 * self.ksize - 4
+        if x.shape[1] < min_t:
+            raise ValueError(
+                f"VideoDiscriminator(ksize={self.ksize}) needs clips with at "
+                f"least {min_t} frames, got T={x.shape[1]}")
+        noise = lambda h: self.noise(h, generator=generator)
+        first, *body, last = (getattr(self, n) for n in self._names)
+        h = leaky_relu(first(noise(x.permute(0, 4, 1, 2, 3))))
+        for i, conv in enumerate(body):
+            h = leaky_relu(getattr(self, f"BatchNorm_{i}")(conv(noise(h))))
+        return _squeeze(last(h)), None
+
+
+class CategoricalVideoDiscriminator(_Discriminator):
+    """Video discriminator emitting ``(realness logits, category logits)``,
+    split along the channel (last) axis of ``VideoDiscriminator_0``'s
+    output."""
+
+    def __init__(self, dim_categorical: int, n_channels: int = 3,
+                 n_output_neurons: int = 1, ndf: int = 64, ksize: int = 4,
+                 use_noise: bool = False, noise_sigma: float | None = None):
+        super().__init__(use_noise, noise_sigma)
+        self.dim_categorical = dim_categorical
+        self.VideoDiscriminator_0 = VideoDiscriminator(
+            n_channels, n_output_neurons + dim_categorical, ndf, ksize,
+            use_noise, noise_sigma)
+
+    def forward(self, x: torch.Tensor, *, generator=None):
+        h, _ = self.VideoDiscriminator_0(x, generator=generator)
+        split = h.shape[-1] - self.dim_categorical
+        return h[..., :split], h[..., split:]
+
+
+IMAGE_DISCRIMINATORS = {"patch": PatchImageDiscriminator,
+                        "full": ImageDiscriminator}
+VIDEO_DISCRIMINATORS = {"full": VideoDiscriminator,
+                        "patch": PatchVideoDiscriminator}
+# the spectral-norm critics (SNImageDiscriminator, SNVideoDiscriminator)
+DISCRIMINATORS_NOT_PORTED = {"sn": "M9"}

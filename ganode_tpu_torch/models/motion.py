@@ -44,6 +44,13 @@ class MotionGRU(nn.Module):
     def init_parameters(self, generator: torch.Generator):
         self.gru.init_parameters(generator)
 
+    def draw_noise(self, n: int, video_len: int, generator) -> dict:
+        """The noise one call consumes, drawn from ``generator`` on its
+        device: ``h0 (n, dim)`` and ``e (video_len, n, dim)``."""
+        dev = generator.device
+        return {"h0": draw_normal((n, self.dim), generator, dev),
+                "e": draw_normal((video_len, n, self.dim), generator, dev)}
+
     def forward(self, n: int, video_len: int, *, generator=None, h0=None,
                 e=None) -> torch.Tensor:
         dev = self.gru.wi.device
@@ -84,6 +91,11 @@ class MotionODE(nn.Module):
     def init_parameters(self, generator: torch.Generator):
         self.WarmupMLP_0.init_parameters(generator)
         self.ode_fn.init_parameters(generator)
+
+    def draw_noise(self, n: int, video_len: int, generator) -> dict:
+        """The noise one call consumes, drawn from ``generator`` on its
+        device: ``x0 (n, dim)``."""
+        return {"x0": draw_normal((n, self.dim), generator, generator.device)}
 
     def forward(self, n: int, video_len: int, *, generator=None,
                 x0=None) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Module layer: the generator's building blocks."""
-from .layers import GRUCell, MLP, WarmupMLP, leaky_relu
+"""Module layer: the generator's and discriminators' building blocks."""
+from .layers import MLP, BatchNorm, GRUCell, Noise, WarmupMLP, leaky_relu
 
-__all__ = ["GRUCell", "MLP", "WarmupMLP", "leaky_relu"]
+__all__ = ["BatchNorm", "GRUCell", "MLP", "Noise", "WarmupMLP", "leaky_relu"]

@@ -1,8 +1,9 @@
-"""Core layers: GRU cell and small MLPs (twins of ``ganode_tpu/nn/layers.py``).
+"""Core layers: flax-semantics BatchNorm, additive noise, GRU cell and small
+MLPs (twins of ``ganode_tpu/nn/layers.py`` and of the ``nn.BatchNorm`` the JAX
+models use).
 
 Submodule and parameter names follow the flax tree (``Dense_0``, ``wi``...), so
-``ganode_tpu_torch.bridge`` maps one onto the other by name. ``Noise`` belongs
-to the discriminators and comes with them (ROADMAP M5).
+``ganode_tpu_torch.bridge`` maps one onto the other by name.
 
 Parameters are created uninitialised; ``init_parameters`` fills them from an
 explicit ``torch.Generator`` with the JAX package's initialisers.
@@ -19,6 +20,84 @@ from torch import nn
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over dim 1 of an
+    ``(N, C, ...)`` input: 2-D (NCHW) and 3-D (NCDHW) alike.
+
+    Train mode normalises by the batch mean and the **biased** batch variance
+    and moves the running statistics towards them, both biased:
+    ``running = (1 - momentum) * running + momentum * batch``, momentum 0.1 in
+    torch's terms (flax's 0.9). ``torch.nn.BatchNorm2d`` keeps the unbiased
+    variance instead, so its running variance drifts from flax's by
+    ``n / (n - 1)``. Eval mode normalises by the running statistics.
+
+    The keys are ``nn.BatchNorm2d``'s (``weight``, ``bias``, ``running_mean``,
+    ``running_var``, ``num_batches_tracked``), so the bridge maps flax's
+    ``scale``/``bias``/``mean``/``var`` onto them as before.
+    """
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
+        super().__init__()
+        self.num_features = num_features
+        self.eps = eps
+        self.momentum = momentum
+        self.weight = nn.Parameter(torch.empty(num_features))
+        self.bias = nn.Parameter(torch.empty(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+        self.register_buffer("num_batches_tracked",
+                             torch.tensor(0, dtype=torch.long))
+
+    def reset_parameters(self):
+        """flax's init: scale 1, bias 0, running mean 0 and variance 1."""
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+        self.num_batches_tracked.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        dims = [0, *range(2, x.ndim)]
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=dims, correction=0)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        # batch statistics only: F.batch_norm normalises by the biased
+        # variance, as flax does, and updates no running buffer
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
+class Noise(nn.Module):
+    """Additive Gaussian noise ``x + sigma * eps`` when enabled, identity
+    otherwise (``ganode_tpu/nn/layers.py:22-37``). ``eps`` is given as
+    ``noise`` or drawn from ``generator``; the JAX layer draws it from its
+    'noise' stream, which no seed of this package reproduces."""
+
+    def __init__(self, use_noise: bool = False, sigma: float | None = 0.2):
+        super().__init__()
+        self.use_noise = use_noise
+        self.sigma = sigma
+
+    def forward(self, x: torch.Tensor, *, noise=None,
+                generator=None) -> torch.Tensor:
+        if not self.use_noise or self.sigma is None:
+            return x
+        if noise is None:
+            if generator is None:
+                raise ValueError("Noise is on: pass a torch.Generator or the "
+                                 "noise itself")
+            noise = torch.randn(x.shape, generator=generator,
+                                device=x.device, dtype=x.dtype)
+        return x + self.sigma * noise
 
 
 def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator):

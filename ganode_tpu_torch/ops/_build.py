@@ -164,6 +164,19 @@ def check_inputs(tensors: dict, shapes: dict):
             raise ValueError(f"{name} must be contiguous")
 
 
+def check_current_device(device: torch.device):
+    """Refuse tensors that do not lie on the current CUDA device: the
+    launchers' ``<<<...>>>`` and their shared-memory query act on the CUDA
+    runtime's current device, whatever the tensors' device. A refusal costs
+    one ``cudaGetDevice`` per call, where a device guard would cost two
+    ``cudaSetDevice``s."""
+    current = torch.cuda.current_device()
+    if device.index != current:
+        raise ValueError(
+            f"the tensors lie on {device} but the current CUDA device is "
+            f"cuda:{current}; launch under torch.cuda.device({device.index})")
+
+
 def raw_stream(device: torch.device) -> int:
     """The handle of the current CUDA stream on ``device``, for a launcher.
     The raw call PyTorch's own generated kernels use: a few hundred ns on the

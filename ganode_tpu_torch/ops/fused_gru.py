@@ -51,6 +51,7 @@ def _launch(h0, e, wi, wh, bi, bh, variant=None):
     """Launch K2 on validated CUDA inputs. ``variant`` ("warp" or "wide")
     overrides ``_build.choose_variant``, for tests and timing."""
     global launches
+    _build.check_current_device(e.device)
     lib = _build.load_library()
     t, b, d = e.shape
     chosen, lanes = _build.choose_variant(d)
@@ -93,8 +94,9 @@ def fused_gru_motion(h0, e, wi, wh, bi, bh):
     in ``[r | z | n]`` blocks, ``bi, bh (3D,)``, all float32 and contiguous
     -> ``(T, B, D)`` of ``h_1..h_T``.
 
-    CUDA tensors launch the kernel (one launch, no synchronisation); CPU
-    tensors run ``reference_gru_motion``. The variant follows from D
+    CUDA tensors launch the kernel (one launch, no synchronisation) on the
+    current CUDA device, which must be theirs; CPU tensors run
+    ``reference_gru_motion``. The variant follows from D
     (``_build.choose_variant``).
     """
     if e.ndim != 3:

@@ -28,15 +28,16 @@ launches_by_variant = {"warp": 0, "wide": 0}
 def reference_rk4_motion(x, w1, b1, w2, b2, ts):
     """Plain PyTorch ground truth: rk4 over the ``ts`` grid on
     ``f(y) = tanh(y @ w1 + b1) @ w2 + b2``. Returns ``(T, B, D)``."""
-    ts = ts.to(device=x.device, dtype=x.dtype)
+    # the spacings as Python floats (float32 values, as the JAX plain
+    # version has them): a CPU ts then costs the card no copy and no sync
+    steps = ts.to(x.dtype).diff().tolist()
 
     def rhs(y):
         return torch.tanh(y @ w1 + b1) @ w2 + b2
 
     ys = [x]
     y = x
-    for i in range(ts.shape[0] - 1):
-        h = ts[i + 1] - ts[i]
+    for h in steps:
         k1 = rhs(y)
         k2 = rhs(y + 0.5 * h * k1)
         k3 = rhs(y + 0.5 * h * k2)
@@ -72,6 +73,7 @@ def _launch(x, w1, b1, w2, b2, n_out: int, h: float, variant=None):
     """Launch K1 on validated CUDA inputs. ``variant`` ("warp" or "wide")
     overrides ``_build.choose_variant``, for tests and timing."""
     global launches
+    _build.check_current_device(x.device)
     lib = _build.load_library()
     b, d = x.shape
     hd = w1.shape[1]
@@ -119,9 +121,12 @@ def fused_rk4_motion(x, w1, b1, w2, b2, ts):
     ``ts``: ``x (B, D)``, ``w1 (D, H)``, ``b1 (H,)``, ``w2 (H, D)``, ``b2 (D,)``,
     all float32 and contiguous -> trajectory ``(T, B, D)`` with ``out[0] = x``.
 
-    CUDA tensors launch the kernel (one launch, no synchronisation); CPU
-    tensors run ``reference_rk4_motion``. ``ts`` may lie on either device.
-    The variant follows from the widths (``_build.choose_variant``).
+    CUDA tensors launch the kernel (one launch, no synchronisation) on the
+    current CUDA device, which must be theirs; CPU tensors run
+    ``reference_rk4_motion``. ``ts`` may lie on either device. A one-point
+    grid returns ``x[None]`` without a launch, as the JAX package's
+    ``MotionODE(video_len=1)`` does. The variant follows from the widths
+    (``_build.choose_variant``).
     """
     if x.ndim != 2 or w1.ndim != 2:
         raise ValueError(f"x and w1 must be 2-D, got {tuple(x.shape)} and "
@@ -130,6 +135,8 @@ def fused_rk4_motion(x, w1, b1, w2, b2, ts):
     _build.check_inputs(
         dict(x=x, w1=w1, b1=b1, w2=w2, b2=b2),
         dict(x=(b, d), w1=(d, hd), b1=(hd,), w2=(hd, d), b2=(d,)))
+    if ts.ndim == 1 and ts.shape[0] == 1:
+        return x[None]  # a one-point grid: the trajectory is x, no launch
     h = uniform_step(ts)
     if x.device.type == "cpu":
         return reference_rk4_motion(x, w1, b1, w2, b2, ts)

@@ -11,10 +11,14 @@ state in registers; every config's widths) and "wide" (shared-memory tiles;
 larger widths). The shapes below take each variant at each lane count, and
 ``_launch(..., variant="wide")`` forces the wide one at the serving shape.
 
-Float32 with TF32 off for matrix products. Tolerances: 1e-5 abs on
-trajectories; rtol 1e-4 on gradients, whose backward differentiates the plain
-version on the card.
+Float32 with TF32 off for matrix products (and for cuDNN's convolutions in
+the training tests). Tolerances: 1e-5 abs on trajectories; rtol 1e-4 on
+gradients, whose backward differentiates the plain version on the card; 1e-4
+abs on losses and parameters after a whole training step, card against CPU
+(every convolution sums in another order on each device).
 """
+import copy
+
 import pytest
 import torch
 
@@ -26,6 +30,8 @@ from ganode_tpu_torch.ops import (
     reference_gru_motion,
     reference_rk4_motion,
 )
+from ganode_tpu_torch.train import build_trainer
+from ganode_tpu_torch.utils.config import get_config
 
 pytestmark = pytest.mark.cuda
 
@@ -140,3 +146,101 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     # the warp variant refuses widths above its 32 lanes
     with pytest.raises(RuntimeError, match="lane count"):
         fused_rk4._launch(*_rk4(cuda, 2, 33, 16, 3)[:5], 3, 0.5, variant="warp")
+
+
+def test_one_point_grid_launches_nothing(cuda):
+    x, w1, b1, w2, b2, _ = _rk4(cuda, 4, 16, 16, 2)
+    before = fused_rk4.launches
+    out = fused_rk4_motion(x, w1, b1, w2, b2, torch.zeros(1))
+    assert fused_rk4.launches == before
+    assert out.shape == (1, 4, 16) and torch.equal(out[0], x)
+
+
+def test_kernels_refuse_a_tensor_off_the_current_device(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA cards")
+    other = torch.device("cuda", 1 - torch.cuda.current_device())
+    with pytest.raises(ValueError, match="current CUDA device"):
+        fused_rk4_motion(*[a.to(other) for a in _rk4(cuda, 4, 16, 16, 3)[:5]],
+                         torch.linspace(0.0, 1.0, 3))
+    with pytest.raises(ValueError, match="current CUDA device"):
+        fused_gru_motion(*[a.to(other) for a in _gru(cuda, 4, 16, 3)])
+
+
+def _trainer(name, device, seed=0):
+    """A reduced-width trainer of ``name`` on ``device`` and a batch drawn on
+    the CPU."""
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(name, ngf=8, ndf=8, batch_size=4)
+    tr = build_trainer(cfg, device=device)
+    g = torch.Generator().manual_seed(seed)
+    size, c = (64, 3) if cfg.trunk == "dcgan64" else (28, 1)
+    images = torch.rand((2, 4, size, size, c), generator=g) * 2 - 1
+    videos = torch.rand((2, 4, cfg.video_length, size, size, c),
+                        generator=g) * 2 - 1
+    return tr, tr.init_state(), images, videos
+
+
+NETS = ("gen", "dis_img", "dis_vid")
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_a_training_step_on_the_card_matches_the_cpu(cuda, monkeypatch, seed):
+    """One step on the card (float32, cuDNN deterministic) and on the CPU in
+    float64, from one state carried across after a CPU step (Adam's first
+    step from zero moments, lr * sign(g), would turn the rounding of
+    near-zero gradients into 2 * lr) and one noise tape. float64, as a
+    float32 CPU step is no closer to it than the card's: with torch 2.11 on
+    the H100 host's CPU, oneDNN's float32 path has left G's gradients further
+    from their float64 values than the card's. cuDNN's deterministic
+    algorithms, as its default ones have moved the card's step further from
+    float64 than 1e-4."""
+    import ganode_tpu_torch.models.motion as motion_mod
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    tr_c, st_c, images, videos = _trainer("ucf_ode", "cpu", seed)
+    tr_c.train_step(st_c, images, videos, noise=tr_c.noise_tape(
+        torch.Generator().manual_seed(seed + 10), "cpu"))
+    runs = []
+    for device, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+        if dtype == torch.float64:  # the wrappers take float32 only
+            monkeypatch.setattr(motion_mod, "fused_rk4_motion",
+                                reference_rk4_motion)
+        tr, st, _, _ = _trainer("ucf_ode", device)
+        for n in NETS:
+            getattr(tr, n).to(dtype=dtype).load_state_dict(
+                getattr(tr_c, n).state_dict())
+            getattr(st, n).opt.load_state_dict(
+                copy.deepcopy(getattr(st_c, n).opt.state_dict()))
+        tape = [{k: v.to(dtype) if v.is_floating_point() else v
+                 for k, v in d.items()}
+                for d in tr.noise_tape(torch.Generator().manual_seed(seed + 20),
+                                       device)]
+        metrics = tr.train_step(st, images.to(device, dtype),
+                                videos.to(device, dtype), noise=tape)
+        runs.append(({k: v.item() for k, v in metrics.items()},
+                     {f"{n}.{k}": v.detach().cpu().double() for n in NETS
+                      for k, v in getattr(tr, n).state_dict().items()}))
+    (got, got_sd), (want, want_sd) = runs
+    for k in want:
+        assert abs(got[k] - want[k]) < 1e-4, (k, got[k], want[k])
+    worst = max((got_sd[k] - v).abs().max().item() for k, v in want_sd.items())
+    print(f"seed {seed}: card vs float64 CPU, parameters and statistics "
+          f"max|diff| {worst:.3e}")
+    for k, v in want_sd.items():
+        torch.testing.assert_close(got_sd[k], v, rtol=0, atol=1e-4,
+                                   msg=lambda m: f"{k}: {m}")
+
+
+@pytest.mark.parametrize("name,module", [("ucf_ode", fused_rk4),
+                                         ("mnist_gru", fused_gru)])
+def test_a_training_step_launches_its_kernel_six_times(cuda, name, module):
+    """Four no-grad samples in the D updates, two in the G update; the
+    backward differentiates the plain version and launches nothing."""
+    tr, state, images, videos = _trainer(name, cuda)
+    module.launches = 0
+    module.launches_by_variant.update(warp=0, wide=0)
+    tr.train_step(state, images.to(cuda), videos.to(cuda),
+                  generator=torch.Generator(cuda).manual_seed(0))
+    torch.cuda.synchronize()
+    assert module.launches_by_variant == {"warp": 6, "wide": 0}

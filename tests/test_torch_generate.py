@@ -16,6 +16,7 @@ from ganode_tpu.utils import config as jax_config
 from ganode_tpu.utils import layout as jax_layout
 from ganode_tpu_torch.compat import GeneratorSession
 from ganode_tpu_torch.models import generator_for_config, make_generator
+from ganode_tpu_torch.train import build_trainer
 from ganode_tpu_torch.utils import config, layout
 
 REPO = Path(__file__).resolve().parent.parent
@@ -108,13 +109,36 @@ def test_config_registry_mirrors_jax():
         config.overrides_from_strings(["use_pallas=1"])
 
 
-@pytest.mark.parametrize("name,item", [
+GENERATOR_SIDE = [
     ("mnist_sde", "M10"), ("mnist_cde", "M10"), ("mnist_ode_rnn", "M10"),
     ("mnist_moe_ode", "M10"), ("ucf_gres", "M13"), ("ucf_odegres", "M13"),
-    ("ucf_wgan_gp_128", "M9")])
-def test_unported_configs_name_their_roadmap_item(name, item):
+    ("ucf_wgan_gp_128", "M9")]
+# options of ported configs that the trainer refuses (small widths, so the
+# nets build quickly before the refusal)
+TRAINER_SIDE = [
+    ("mnist_ode", {"image_disc": "sn"}, "M9"),
+    ("mnist_ode", {"video_disc": "sn"}, "M9"),
+    ("mnist_ode", {"gp_weight": 10.0}, "M9"),
+    ("mnist_ode", {"r1_weight": 1.0}, "M9"),
+    ("mnist_ode", {"diffaug": "color,translation"}, "M11"),
+    ("mnist_gru", {"diffaug": "color", "ada_target": 0.6}, "M11"),
+    ("ucf_ode", {"compute_dtype": "bfloat16"}, "M4")]
+
+
+@pytest.mark.parametrize("name,overrides,item", [
+    pytest.param(name, {}, item, id=f"{name}-{item}")
+    for name, item in GENERATOR_SIDE] + [
+    pytest.param(name, over, item, id=f"{name}-{'-'.join(over)}-{item}")
+    for name, over, item in TRAINER_SIDE])
+def test_unported_configs_name_their_roadmap_item(name, overrides, item):
+    if overrides:
+        cfg = config.get_config(name, ngf=4, ndf=4, **overrides)
+    else:
+        cfg = config.get_config(name)
+        with pytest.raises(NotImplementedError, match=item):
+            generator_for_config(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
-        generator_for_config(config.get_config(name), device="cpu")
+        build_trainer(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("name", ["video_to_torch", "video_from_torch",

@@ -13,6 +13,7 @@ rtol 1e-4, atol 1e-5 on trunk outputs, which sum up to ngf*8*16 products per
 output in float32, in another order on each side.
 """
 import jax
+from flax import linen as nn
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -254,3 +255,49 @@ def test_same_seed_same_weights():
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["motion.gru.wi"], c["motion.gru.wi"])
     assert torch.equal(a["main.BatchNorm_0.running_var"], torch.ones(64))
+
+
+@pytest.mark.parametrize("variant,method", [("ode", "rk4"), ("ode", "euler"),
+                                            ("gru", None)])
+def test_one_frame_clip_matches_the_jax_module(variant, method):
+    """video_len=1: the JAX modules return (n, 1, dim); the port too, with no
+    kernel launch for the ODE (a one-point grid is the initial state). The
+    noise the JAX module drew is read where it is consumed: the WarmupMLP's
+    input (x0), the GRU cell's first call (h0, e_1)."""
+    n, k = 4, jax.random.PRNGKey(6)
+    jmod = (JaxMotionODE(dim=16, method=method) if variant == "ode"
+            else JaxMotionGRU(dim=16))
+    seen = {}
+
+    def keep(name, value):
+        jax.debug.callback(lambda a: seen.setdefault(name, np.array(a, np.float32)),
+                           value)
+
+    def intercept(next_fun, args, kwargs, context):
+        if context.method_name == "__call__":
+            if isinstance(context.module, jl.WarmupMLP):
+                keep("x0", args[0])
+            elif isinstance(context.module, jl.GRUCell):
+                keep("h0", args[0])
+                keep("e", args[1])
+        return next_fun(*args, **kwargs)
+
+    with jax.enable_x64(False):
+        v = _np_tree(jmod.init({"params": k, "sample": k}, n, 2))
+        with nn.intercept_methods(intercept):
+            want = np.asarray(jmod.apply(v, n, 1, rngs={"sample": k}))
+        jax.effects_barrier()
+    assert want.shape == (n, 1, 16)
+    if variant == "ode":
+        port, noise = MotionODE(16, method=method), {"x0": seen["x0"]}
+    else:
+        port, noise = MotionGRU(16), {"h0": seen["h0"], "e": seen["e"][None]}
+    with torch.no_grad():
+        got = _load(port, v)(n, 1, **{a: torch.from_numpy(b)
+                                      for a, b in noise.items()})
+    assert got.shape == (n, 1, 16)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    gen = make_generator(variant, n_channels=1, trunk="mnist28", ngf=4,
+                         device="cpu")
+    videos, _ = gen.sample_videos(2, 1, generator=torch.Generator().manual_seed(0))
+    assert videos.shape == (2, 1, 28, 28, 1)
