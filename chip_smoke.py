@@ -41,7 +41,24 @@ printing one line before the next starts:
     T = 16) on the card and on the CPU in float64, from one state carried
     across after a CPU step and one noise tape, and holds the losses and every
     net's parameters and statistics together;
-11. trains ``mnist_gru`` at full width for 2 steps, K2's counter +6 per step.
+11. trains ``mnist_gru`` at full width for 2 steps, K2's counter +6 per step;
+12. runs the training command line, ``python -m ganode_tpu_torch.train
+    --config ucf_ode --synthetic --steps 4`` at full width (logging every
+    step, samples and checkpoints every 2), and checks what it wrote: four
+    finite ``metrics.jsonl`` lines, TensorBoard events (read back by the
+    port's own reader), the GIFs of steps 0 and 2, checkpoints 0, 2 and 4;
+13. drives ``run_training`` on ``ucf_ode`` at full width in this process:
+    K1's warp counter +6 per step exactly, ms/step from the runner's own log
+    beside phase 8's bare ``train_step``, the host data path (gather and
+    copy to the card) alone, and a checkpoint's size and save and restore
+    times (the restore bit for bit);
+14. in a child process under deterministic algorithms (cuDNN deterministic,
+    ``torch.use_deterministic_algorithms``, ``CUBLAS_WORKSPACE_CONFIG`` set
+    before cuBLAS starts): 4 ``ucf_ode`` steps straight, then 2 steps, a
+    STOP file, and a resume to 4; every parameter, BatchNorm statistic and
+    Adam moment must be equal bit for bit;
+15. trains ``mnist_gru`` at full width through ``make_device_data_step``, its
+    synthetic rotated-MNIST set resident on the card: K2 +6 per step.
 
 Float32 throughout. Matrix products run in full float32
 (``torch.backends.cuda.matmul.allow_tf32 = False``); the correctness checks
@@ -51,7 +68,11 @@ times are taken with cuDNN's TF32 both off and on (PyTorch's default).
 The last two lines of standard output are one JSON object with a record per
 kernel and the training run, and ``{"ok": true, "device": {...}}``. Any
 failure exits non-zero before those lines. Writes nothing but
-``ganode_tpu_torch/_build/``.
+``ganode_tpu_torch/_build/`` and temporary directories that it deletes.
+
+    python3 chip_smoke.py --resume-check DIR
+
+is phase 14's child process: it trains in DIR and prints one JSON line.
 """
 from __future__ import annotations
 
@@ -61,8 +82,10 @@ import importlib.metadata
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 WATCHDOG_S = 240
@@ -88,6 +111,11 @@ YARDSTICKS = 3.0
 # conv stacks summed in another order on each device, and one Adam step.
 TOL_STEP = 1e-4
 TRAIN_STEPS = 5   # timed full-width steps per TF32 setting
+RUNNER_STEPS = 6  # run_training steps; ms/step from the log of the first and last
+DEVICE_DATA_STEPS = 3
+REPO = os.path.dirname(os.path.abspath(__file__))
+# Deterministic cuBLAS: must be in the environment before cuBLAS starts.
+CUBLAS_DETERMINISTIC = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
 
 
 def phase(name: str):
@@ -443,6 +471,299 @@ def train_phases(dev, card, events_ms) -> dict:
     return out
 
 
+def run_child(cmd, what, env=None):
+    """Run a child process to its end (inside the phase's watchdog) ->
+    its standard output; fails with the end of its output if it fails."""
+    try:
+        out = subprocess.run(cmd, capture_output=True, text=True, cwd=REPO,
+                             env={**os.environ, **(env or {})},
+                             timeout=WATCHDOG_S - 30)
+    except subprocess.TimeoutExpired:
+        raise SystemExit(f"FAIL: {what} did not finish in {WATCHDOG_S - 30} s")
+    if out.returncode != 0:
+        say(out.stdout[-3000:])
+        say(out.stderr[-6000:])
+    require(out.returncode == 0, f"{what} exited {out.returncode}")
+    return out.stdout
+
+
+def jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def cli_phase(card) -> dict:
+    """Phase 12: the training command line at full ucf_ode width."""
+    from ganode_tpu_torch.utils import tb
+
+    phase("the training CLI: python -m ganode_tpu_torch.train --config "
+          "ucf_ode --synthetic --steps 4 (full width)")
+    tmp = tempfile.mkdtemp(prefix="ganode_cli_")
+    try:
+        wd = os.path.join(tmp, "run")
+        t0 = time.perf_counter()
+        run_child([sys.executable, "-m", "ganode_tpu_torch.train", "--config",
+                   "ucf_ode", "--synthetic", "--steps", "4", "--workdir", wd,
+                   "--set", "log_every=1", "--set", "sample_every=2",
+                   "--set", "checkpoint_every=2"], "the training CLI")
+        seconds = time.perf_counter() - t0
+        lines = jsonl(os.path.join(wd, "metrics.jsonl"))
+        losses = [{k: l[k] for k in ("dis_img_loss", "dis_vid_loss", "gen_loss")}
+                  for l in lines]
+        require([l["step"] for l in lines] == [0, 1, 2, 3]
+                and all(math.isfinite(v) for d in losses for v in d.values()),
+                f"metrics.jsonl: {lines}")
+        gif_sizes = {}
+        for step in (0, 2):
+            path = os.path.join(wd, "samples", f"gensamples_id{step}.gif")
+            require(os.path.exists(path), f"no {path}")
+            with open(path, "rb") as f:
+                data = f.read()
+            # 16 frames of an 8x8 grid of 64x64 clips, ~9/8 bytes per pixel
+            require(data[:6] == b"GIF89a" and data[-1:] == b";"
+                    and len(data) > 16 * 512 * 512, f"{path}: not a GIF")
+            gif_sizes[step] = len(data)
+        ckpts = sorted(int(d) for d in os.listdir(os.path.join(wd, "checkpoints")))
+        require(ckpts == [0, 2, 4], f"checkpoint steps {ckpts}")
+        (events,) = os.listdir(os.path.join(wd, "tb"))
+        version, scalars = tb.read_scalars(os.path.join(wd, "tb", events))
+        require(version == "brain.Event:2" and [s for s, _ in scalars] == [0, 1, 2, 3]
+                and all(math.isfinite(v) for _, d in scalars for v in d.values()),
+                f"TensorBoard events {version} {scalars}")
+        ckpt_bytes = os.path.getsize(os.path.join(wd, "checkpoints", "4", "state.pt"))
+        say(f"CLI: 4 steps in {seconds:.1f} s of process (start, kernel load, "
+            f"trainer, 4 steps, 2 GIFs of {gif_sizes} bytes, 3 checkpoints of "
+            f"{ckpt_bytes / 2 ** 20:.1f} MiB); losses {losses}; TensorBoard "
+            f"events read back: {len(scalars)}; {card}")
+        return {"seconds": seconds, "losses": losses, "gif_bytes": gif_sizes,
+                "checkpoint_bytes": ckpt_bytes}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def same_state(a, b):
+    """Two port states, tensor by tensor -> (the number compared, the names
+    of those not equal bit for bit): every module's parameters and
+    statistics, every Adam moment and step count, the step."""
+    import torch
+
+    n, bad = 1, [] if a.step == b.step else ["step"]
+    for name in ("gen", "dis_img", "dis_vid"):
+        na, nb = getattr(a, name), getattr(b, name)
+        sa = na.module.state_dict()
+        for k, v in nb.module.state_dict().items():
+            n += 1
+            if not torch.equal(sa[k], v):
+                bad.append(f"{name}.{k}")
+        for (k, pa), pb in zip(na.module.named_parameters(),
+                               nb.module.parameters()):
+            for m in ("exp_avg", "exp_avg_sq", "step"):
+                n += 1
+                if not torch.equal(na.opt.state[pa][m], nb.opt.state[pb][m]):
+                    bad.append(f"{name}.adam.{k}.{m}")
+    return n, bad
+
+
+def runner_phase(dev, card, bare_ms) -> dict:
+    """Phase 13: run_training in process at full ucf_ode width."""
+    import torch
+
+    from ganode_tpu_torch.ops import fused_gru, fused_rk4
+    from ganode_tpu_torch.train import runner
+    from ganode_tpu_torch.utils.checkpoint import CheckpointManager
+    from ganode_tpu_torch.utils.config import get_config
+
+    phase(f"run_training on ucf_ode at full width: {RUNNER_STEPS} steps, "
+          "cuDNN TF32 on")
+    torch.backends.cudnn.allow_tf32 = True
+    cfg = get_config("ucf_ode", log_every=RUNNER_STEPS - 1, sample_every=0,
+                     checkpoint_every=0)
+    tmp = tempfile.mkdtemp(prefix="ganode_runner_")
+    try:
+        wd = os.path.join(tmp, "run")
+        reset_counts()
+        state, metrics = runner.run_training(cfg, wd, steps=RUNNER_STEPS,
+                                             synthetic=True, device=dev)
+        torch.cuda.synchronize()
+        by_variant = dict(fused_rk4.launches_by_variant)
+        launches = fused_rk4.launches
+        say(f"run_training: K1 launches {by_variant} in {RUNNER_STEPS} steps, "
+            f"K2 {fused_gru.launches}")
+        require(by_variant == {"warp": 6 * RUNNER_STEPS, "wide": 0}
+                and fused_gru.launches == 0,
+                f"K1 did not launch exactly 6 times per runner step: {by_variant}")
+        require(all(map(math.isfinite, metrics.values())), f"losses {metrics}")
+        first, last = jsonl(os.path.join(wd, "metrics.jsonl"))
+        ms = (last["time"] - first["time"]) * 1e3 / (RUNNER_STEPS - 1)
+
+        img_s, vid_s = runner.build_data(cfg, synthetic=True)
+        gather, copy_ = [], []
+        for s in range(3):
+            t0 = time.perf_counter()
+            ims = runner._stack_d_batches(
+                img_s, runner.step_rng(cfg.seed, s, runner.IMAGES), cfg.d_iters)
+            vids = runner._stack_d_batches(
+                vid_s, runner.step_rng(cfg.seed, s, runner.VIDEOS), cfg.d_iters)
+            t1 = time.perf_counter()
+            torch.from_numpy(ims).to(dev)
+            torch.from_numpy(vids).to(dev)
+            torch.cuda.synchronize()
+            gather.append((t1 - t0) * 1e3)
+            copy_.append((time.perf_counter() - t1) * 1e3)
+        batch_bytes = ims.nbytes + vids.nbytes
+        host_ms = min(gather) + min(copy_)
+        say(f"run_training ucf_ode: {ms:.3f} ms/step over steps 1-"
+            f"{RUNNER_STEPS - 1} (the runner's log), against {bare_ms:.3f} for "
+            f"the bare train_step (phase 8, TF32 on); the host data path alone: "
+            f"gather {min(gather):.3f} ms + copy to the card {min(copy_):.3f} "
+            f"ms of {batch_bytes / 1e6:.1f} MB per step (least of 3) = "
+            f"{100 * host_ms / ms:.1f} % of a runner step; {card}")
+
+        mgr = CheckpointManager(os.path.join(tmp, "ckpt"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(state.step, state)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        size = os.path.getsize(os.path.join(tmp, "ckpt", str(state.step),
+                                            "state.pt"))
+        fresh = runner.build_trainer(cfg, device=dev).init_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.restore(fresh)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        _, bad = same_state(fresh, state)
+        say(f"checkpoint of the full-width ucf_ode state: {size / 2 ** 20:.1f} "
+            f"MiB, save {save_ms:.1f} ms, restore {restore_ms:.1f} ms (to the "
+            f"card), {len(bad)} tensors differ after the restore; {card}")
+        require(not bad, f"restore differs in {bad[:10]}")
+        return {"ms_per_step": ms, "bare_train_step_ms": bare_ms,
+                "host_gather_ms": min(gather), "host_copy_ms": min(copy_),
+                "batch_bytes": batch_bytes, "host_share": host_ms / ms,
+                "k1_launches": launches, "losses": metrics,
+                "checkpoint_bytes": size, "checkpoint_save_ms": save_ms,
+                "checkpoint_restore_ms": restore_ms}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def resume_phase(card) -> dict:
+    """Phase 14: the child below, in a fresh process so that cuBLAS starts
+    with a deterministic workspace."""
+    phase("resume on the card, deterministic: 4 steps straight against 2 "
+          "steps + STOP + resume to 4 (ucf_ode, full width)")
+    tmp = tempfile.mkdtemp(prefix="ganode_resume_")
+    try:
+        out = run_child([sys.executable, os.path.abspath(__file__),
+                         "--resume-check", tmp], "the resume check",
+                        env=CUBLAS_DETERMINISTIC)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = json.loads(out.strip().splitlines()[-1])
+    say(f"resume: {rec['tensors']} tensors compared, {len(rec['mismatched'])} "
+        f"differ; straight run {rec['straight_s']:.1f} s, interrupted "
+        f"{rec['interrupted_s']:.1f} s, resumed {rec['resumed_s']:.1f} s "
+        f"(deterministic); {card}")
+    require(rec["tensors"] > 0 and not rec["mismatched"],
+            f"resume differs in {rec['mismatched'][:10]}")
+    return rec
+
+
+def resume_check(workdir) -> int:
+    """Phase 14's child: ucf_ode at full width, 4 steps straight, then 2
+    steps with a STOP file written during step 1 (as an operator's ``touch``
+    would), then a resume to 4; prints the comparison as one JSON line."""
+    import torch
+
+    require(torch.cuda.is_available(), "no CUDA card")
+    require(os.environ.get("CUBLAS_WORKSPACE_CONFIG") == ":4096:8",
+            "CUBLAS_WORKSPACE_CONFIG is not set")
+    sys.path.insert(0, REPO)
+    from ganode_tpu_torch.train import runner
+    from ganode_tpu_torch.utils.config import get_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True)
+    cfg = get_config("ucf_ode", log_every=1, sample_every=0, checkpoint_every=0)
+    t0 = time.perf_counter()
+    straight, _ = runner.run_training(cfg, os.path.join(workdir, "straight"),
+                                      steps=4, synthetic=True)
+    t1 = time.perf_counter()
+    wd = os.path.join(workdir, "resumed")
+    stack = runner._stack_d_batches
+    calls = [0]
+
+    def stop_in_step_1(sampler, rng, d_iters):
+        calls[0] += 1
+        if calls[0] == 3:  # two fetches per step: the first of step 1
+            open(os.path.join(wd, "STOP"), "w").close()
+        return stack(sampler, rng, d_iters)
+
+    runner._stack_d_batches = stop_in_step_1
+    try:
+        half, m = runner.run_training(cfg, wd, steps=4, synthetic=True)
+    finally:
+        runner._stack_d_batches = stack
+    require(m.get("preempted") == 2.0 and half.step == 2
+            and not os.path.exists(os.path.join(wd, "STOP")),
+            f"the STOP file did not halt the run after step 1: {m}")
+    del half
+    t2 = time.perf_counter()
+    resumed, m = runner.run_training(cfg, wd, steps=4, synthetic=True,
+                                     resume=True)
+    t3 = time.perf_counter()
+    require("preempted" not in m and resumed.step == 4, f"resume: {m}")
+    n, bad = same_state(resumed, straight)
+    print(json.dumps({"tensors": n, "mismatched": bad,
+                      "straight_s": t1 - t0, "interrupted_s": t2 - t1,
+                      "resumed_s": t3 - t2}), flush=True)
+    return 0
+
+
+def device_data_phase(dev, card) -> dict:
+    """Phase 15: mnist_gru at full width, its dataset resident on the card."""
+    import torch
+
+    from ganode_tpu_torch.ops import fused_gru, fused_rk4
+    from ganode_tpu_torch.train import runner
+    from ganode_tpu_torch.utils.config import get_config
+
+    phase(f"mnist_gru at full width through make_device_data_step: "
+          f"{DEVICE_DATA_STEPS} steps, synthetic rotated MNIST on the card")
+    cfg = get_config("mnist_gru")
+    tr = runner.build_trainer(cfg, device=dev)
+    state = tr.init_state()
+    videos, _ = runner.synthetic_rotmnist(cfg)
+    videos = torch.from_numpy(videos).to(dev)
+    step = runner.make_device_data_step(tr, cfg.d_iters, cfg.video_length)
+    step(state, videos, runner.step_generator(cfg.seed, 0, runner.TRAIN, dev))
+    torch.cuda.synchronize()
+    reset_counts()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for s in range(1, DEVICE_DATA_STEPS + 1):
+        metrics = step(state, videos,
+                       runner.step_generator(cfg.seed, s, runner.TRAIN, dev))
+    b.record()
+    torch.cuda.synchronize()
+    by_variant = dict(fused_gru.launches_by_variant)
+    launches = fused_gru.launches
+    ms = a.elapsed_time(b) / DEVICE_DATA_STEPS
+    losses = {k: v.item() for k, v in metrics.items()}
+    say(f"mnist_gru device-data step: K2 launches {by_variant} in "
+        f"{DEVICE_DATA_STEPS} steps, K1 {fused_rk4.launches}; {ms:.3f} ms/step "
+        f"after one warm-up step ({tuple(videos.shape)} resident, "
+        f"{videos.numel() * 4 / 1e6:.1f} MB); losses {losses}; {card}")
+    require(by_variant == {"warp": 6 * DEVICE_DATA_STEPS, "wide": 0}
+            and fused_rk4.launches == 0,
+            f"K2 did not launch exactly 6 times per step: {by_variant}")
+    require(all(map(math.isfinite, losses.values())), f"losses {losses}")
+    return {"ms_per_step": ms, "k2_launches": launches, "losses": losses,
+            "dataset_bytes": videos.numel() * 4}
+
+
 def main() -> int:
     faulthandler.enable()
     phase("watchdog armed: %d s per phase" % WATCHDOG_S)
@@ -735,13 +1056,25 @@ def main() -> int:
                 f"trunk alone (1024 frames) {trunk_ms:.3f} ms ({tag}); {card}")
 
     training = train_phases(dev, card, events_ms)
+    entry = {"cli": cli_phase(card)}
+    entry["run_training"] = runner_phase(
+        dev, card, training["ucf_ode"]["tf32_on"]["ms_per_step"])
+    entry["resume"] = resume_phase(card)
+    entry["device_data_step"] = device_data_phase(dev, card)
+    training["entry_point"] = entry
 
     worst = lambda kernel: max(e for (k, _), e in errs.items() if k == kernel)
     record = {"kernels": [
         {"name": "rk4_motion", "route": "cuda", "variant": "warp",
          "source": "ganode_tpu_torch/csrc/motion_kernels.cu",
          "replaces": "ganode_tpu/ops/fused_rk4.py:106",
-         "launches": launches_k1, "max_abs_err": worst("K1 rk4_motion"),
+         "launches": entry["run_training"]["k1_launches"],
+         "launches_by_path": {
+             "serve ucf_ode sample_videos(64)": launches_k1,
+             "train_step, per step": training["ucf_ode"]["k1_launches_per_step"],
+             f"run_training ucf_ode, {RUNNER_STEPS} steps":
+                 entry["run_training"]["k1_launches"]},
+         "max_abs_err": worst("K1 rk4_motion"),
          "ms": k1_ms, "ms_wide": k1_wide_ms, "call_ms": k1_call_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": None,
@@ -750,7 +1083,13 @@ def main() -> int:
         {"name": "gru_motion", "route": "cuda", "variant": "warp",
          "source": "ganode_tpu_torch/csrc/motion_kernels.cu",
          "replaces": "ganode_tpu/ops/fused_gru.py:90",
-         "launches": launches_k2, "max_abs_err": worst("K2 gru_motion"),
+         "launches": entry["device_data_step"]["k2_launches"],
+         "launches_by_path": {
+             "serve mnist_gru sample_videos(64)": launches_k2,
+             "train_step, per step": training["mnist_gru"]["k2_launches_per_step"],
+             f"device data step mnist_gru, {DEVICE_DATA_STEPS} steps":
+                 entry["device_data_step"]["k2_launches"]},
+         "max_abs_err": worst("K2 gru_motion"),
          "ms": k2_ms, "ms_wide": k2_wide_ms, "call_ms": k2_call_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
          "library_ms": k2_lib_ms,
@@ -767,4 +1106,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--resume-check"]:
+        sys.exit(resume_check(sys.argv[2]))
     sys.exit(main())

@@ -1,6 +1,7 @@
-"""Training: the alternating-Adam GAN loop (twin of ``ganode_tpu.train``'s
-``GANTrainer``). The ODE-GAN trainer waits for ROADMAP M12, DiffAugment for
-M11."""
+"""Training: the alternating-Adam GAN step and the run around it (twins of
+``ganode_tpu.train``'s ``GANTrainer`` and ``runner``; ``python -m
+ganode_tpu_torch.train`` is the command line). The ODE-GAN trainer waits for
+ROADMAP M12, DiffAugment for M11."""
 from .gan import GANTrainer, reference_adam
 from .losses import (
     LOSSES,
@@ -12,15 +13,23 @@ from .losses import (
     g_loss_hinge,
     g_loss_wasserstein,
 )
-from .runner import build_trainer
+from .runner import (
+    GracefulStop,
+    build_data,
+    build_trainer,
+    make_device_data_step,
+    run_training,
+)
 from .state import GANState, NetState
 
 __all__ = [
     "GANState",
     "GANTrainer",
+    "GracefulStop",
     "LOSSES",
     "NetState",
     "bce_logits",
+    "build_data",
     "build_trainer",
     "d_loss_bce",
     "d_loss_hinge",
@@ -28,5 +37,7 @@ __all__ = [
     "g_loss_bce",
     "g_loss_hinge",
     "g_loss_wasserstein",
+    "make_device_data_step",
     "reference_adam",
+    "run_training",
 ]

@@ -1,11 +1,50 @@
-"""Config -> trainer assembly (``build_trainer`` of
-``ganode_tpu/train/runner.py:38-100``). The rest of the runner (data,
-logging, checkpointing, the training loop) waits for ROADMAP M7."""
+"""Config -> trainer and data, and the training loop (twin of
+``ganode_tpu/train/runner.py``).
+
+``run_training`` is the reference's train() loop, config-driven: real
+batches from the config's dataset, the alternating step, JSONL and
+TensorBoard logs, GIF samples and checkpoints at the config's cadences, a
+graceful stop on SIGTERM/SIGINT or a ``<workdir>/STOP`` file, and resume.
+
+Every random draw of a step comes from ``(config.seed, step, stream)``: the
+host's ``numpy`` generator for the image and the video batches
+(``step_rng``), the device's ``torch.Generator`` for the step's noise
+(``step_generator``). Where the JAX loop folds the step into its key, the
+port seeds a generator from the three numbers. So a resume needs no saved
+random state, and an interrupted and resumed run equals an uninterrupted one
+bit for bit, wherever the device's kernels are deterministic (on the card:
+``torch.use_deterministic_algorithms(True)``, cuDNN deterministic and
+``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set before cuBLAS starts).
+"""
 from __future__ import annotations
 
+import os
+import signal
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..data import (
+    RotMNISTImages,
+    RotMNISTVideos,
+    UCF101ClipSampler,
+    UCF101ImageSampler,
+    load_rotmnist,
+    rotate_videos,
+)
 from ..models import discriminators_for_config, generator_for_config
+from ..utils.checkpoint import CheckpointManager
 from ..utils.config import ExperimentConfig
+from ..utils.gifs import save_sample_grid
+from ..utils.metrics import MetricsLogger, Throughput
+from ..utils.tb import EventWriter
 from .gan import GANTrainer
+from .state import GANState
+
+# The random streams of one step (the third number of the seed).
+IMAGES, VIDEOS, TRAIN, SAMPLES = range(4)
 
 
 def build_trainer(config: ExperimentConfig, *, device="cuda") -> GANTrainer:
@@ -27,3 +66,345 @@ def build_trainer(config: ExperimentConfig, *, device="cuda") -> GANTrainer:
         weight_decay=config.weight_decay,
         param_noise_sigma=config.param_noise_sigma,
         ema_decay=config.ema_decay, fused_real_fake=config.fused_real_fake)
+
+
+def step_rng(seed: int, step: int, stream: int) -> np.random.Generator:
+    """The host generator of one step's stream."""
+    return np.random.default_rng([seed, step, stream])
+
+
+def step_generator(seed: int, step: int, stream: int,
+                   device) -> torch.Generator:
+    """The ``torch.Generator`` on ``device`` of one step's stream."""
+    s = np.random.SeedSequence([seed, step, stream]).generate_state(1, np.uint64)
+    return torch.Generator(device).manual_seed(int(s[0]))
+
+
+def synthetic_rotmnist(config: ExperimentConfig, n_videos: int = 64,
+                       seed: int = 0):
+    """Synthetic rotated-square videos with the real dataset's geometry, for
+    dry runs when no dataset file is present."""
+    from ..data.rotmnist import rotate_videos
+
+    rng = np.random.RandomState(seed)
+    imgs = np.full((n_videos, 28, 28), -0.5, np.float32)
+    for i in range(n_videos):
+        y, x = rng.randint(4, 18, 2)
+        imgs[i, y:y + 8, x:x + 8] = 0.5
+    if config.digits:  # synthetic labels honor the class filter too
+        labels = np.asarray(config.digits)[rng.randint(0, len(config.digits),
+                                                       n_videos)]
+    else:
+        labels = rng.randint(0, 10, n_videos)
+    X, Y = rotate_videos(imgs, labels, num_frames=config.video_length)
+    return X.reshape(-1, config.video_length, 28, 28, 1), Y
+
+
+def synthetic_ucf(config: ExperimentConfig, n_videos: int = 16, seed: int = 0):
+    size = 128 if config.trunk == "dcgan128" else 64
+    rng = np.random.RandomState(seed)
+    videos = rng.randint(0, 255, (n_videos, config.video_length + 8, size, size,
+                                  config.n_channels), dtype=np.uint8)
+    videos = (videos.astype(np.float32) - 128.0) / 128.0
+    return videos, rng.randint(0, 101, n_videos)
+
+
+class _ArrayImages:
+    """Random frames of random videos of an in-memory array (the synthetic
+    UCF101 image sampler of ``ganode_tpu/train/runner.py:164-171``)."""
+
+    def __init__(self, videos, labels, batch_size: int):
+        self.videos, self.labels, self.batch_size = videos, labels, batch_size
+
+    def draw(self, rng: np.random.Generator):
+        return (rng.integers(0, len(self.videos), self.batch_size),
+                rng.integers(0, self.videos.shape[1], self.batch_size))
+
+    def gather(self, i, t):
+        return self.videos[np.asarray(i), np.asarray(t)], self.labels[np.asarray(i)]
+
+    def sample(self, rng: np.random.Generator):
+        return self.gather(*self.draw(rng))
+
+
+class _ArrayClips(_ArrayImages):
+    """Random ``n_frame`` windows of an in-memory array (``:173-181``)."""
+
+    def __init__(self, videos, labels, batch_size: int, n_frame: int):
+        super().__init__(videos, labels, batch_size)
+        self.n_frame = n_frame
+
+    def draw(self, rng: np.random.Generator):
+        return (rng.integers(0, len(self.videos), self.batch_size),
+                rng.integers(0, self.videos.shape[1] - self.n_frame + 1,
+                             self.batch_size))
+
+    def gather(self, i, s):
+        i = np.asarray(i)
+        return (np.stack([self.videos[ii, ss:ss + self.n_frame]
+                          for ii, ss in zip(i, np.asarray(s))]), self.labels[i])
+
+
+def build_data(config: ExperimentConfig, *, synthetic: bool = False,
+               value_range=None, start_step: int = 0):
+    """Returns (image_sampler, video_sampler), each with ``sample(rng)``.
+
+    ``value_range`` (rotmnist only) rescales the served values; training keeps
+    the reference's [0, 1] quirk (reference dataset/mnist_rotation.py:28-32),
+    but evaluation must compare reals and tanh fakes on the same [-1, 1] scale.
+    ``start_step`` is for the native loader's streams, which wait for ROADMAP
+    M15; the samplers here draw each step's batch from the step alone.
+    """
+    del start_step
+    if config.dataset == "rotmnist":
+        if synthetic or not os.path.exists(config.data_path):
+            if not synthetic:
+                raise FileNotFoundError(
+                    f"dataset not found at {config.data_path}; build it with "
+                    "scripts/build_rotmnist.py or pass synthetic=True")
+            videos, labels = synthetic_rotmnist(config)
+        else:
+            videos, labels = load_rotmnist(
+                config.data_path, train=True, num_frames=config.video_length,
+                digits=config.digits)
+        kw = {"value_range": value_range} if value_range is not None else {}
+        return (RotMNISTImages(videos, labels, config.batch_size, **kw),
+                RotMNISTVideos(videos, labels, config.batch_size, **kw))
+    if config.dataset == "ucf101":
+        if synthetic or not os.path.exists(config.data_path):
+            if not synthetic:
+                raise FileNotFoundError(
+                    f"packed UCF101 not found at {config.data_path}; pack it "
+                    "with scripts/pack_ucf101.py or pass synthetic=True")
+            videos, labels = synthetic_ucf(config)
+            return (_ArrayImages(videos, labels, config.batch_size),
+                    _ArrayClips(videos, labels, config.batch_size,
+                                config.video_length))
+        if config.data_loader == "native":
+            raise NotImplementedError(
+                "data_loader='native' (the C++ clip loader) waits for "
+                "ROADMAP M15; use data_loader='python'")
+        if config.data_loader != "python":
+            raise ValueError(
+                f"unknown data_loader {config.data_loader!r}; "
+                "choose 'python' or 'native'")
+        return (UCF101ImageSampler(config.data_path, config.batch_size),
+                UCF101ClipSampler(config.data_path, config.batch_size,
+                                  n_frame=config.video_length))
+    raise ValueError(f"unknown dataset {config.dataset!r}")
+
+
+def _stack_d_batches(sampler, rng: np.random.Generator, d_iters: int):
+    """``d_iters`` batches of one sampler, drawn in turn from ``rng``."""
+    return np.stack([sampler.sample(rng)[0] for _ in range(d_iters)])
+
+
+def make_host_data_step(trainer: GANTrainer):
+    """The loop body of ``run_training``: ``step(state, images, videos,
+    generator, noise=None) -> metrics``, with numpy batches ``(d_iters, B,
+    ...)`` copied to the trainer's device, and the step's noise from
+    ``generator`` or the ``noise`` tape (``GANTrainer.train_step``)."""
+    device = trainer.gen.device
+
+    def step(state, images, videos, generator, noise=None):
+        images = torch.from_numpy(np.ascontiguousarray(images)).to(device)
+        videos = torch.from_numpy(np.ascontiguousarray(videos)).to(device)
+        return trainer.train_step(state, images, videos, generator=generator,
+                                  noise=noise)
+
+    return step
+
+
+def gather_device_batches(videos: torch.Tensor, vid_idx, img_vid_idx,
+                          frame_idx):
+    """-> (images ``(d, B, H, W, C)``, clips ``(d, B, T, H, W, C)``) of a
+    dataset ``videos (N, T, H, W, C)`` on the device: clips ``vid_idx``, and
+    frame ``frame_idx`` of clips ``img_vid_idx`` (all ``(d, B)``)."""
+    return videos[img_vid_idx, frame_idx], videos[vid_idx]
+
+
+def make_device_data_step(trainer: GANTrainer, d_iters: int, video_length: int):
+    """A step whose real batches are gathered on the device from a resident
+    dataset: ``step(state, videos, generator) -> metrics``.
+
+    For datasets that fit in device memory (rotated-MNIST is ~6 MB),
+    ``videos (N, T, H, W, C)`` is copied to the card once; each step draws
+    its clips and frames with ``generator`` (a ``torch.Generator`` on the
+    same device), which then feeds the step's noise. Nothing crosses from the
+    host per step.
+    """
+    B = trainer.batch_size
+
+    def step(state, videos, generator):
+        def draw(high):
+            return torch.randint(0, high, (d_iters, B), generator=generator,
+                                 device=videos.device)
+
+        n = videos.shape[0]
+        vid_idx, img_vid_idx, frame_idx = draw(n), draw(n), draw(video_length)
+        images, clips = gather_device_batches(videos, vid_idx, img_vid_idx,
+                                              frame_idx)
+        return trainer.train_step(state, images, clips, generator=generator)
+
+    return step
+
+
+class GracefulStop:
+    """Preemption-safe stop request: SIGTERM/SIGINT (the notice a preempted
+    worker gets) or a ``<workdir>/STOP`` file end the run gracefully: the
+    in-flight step completes, the state is checkpointed, and
+    ``run_training`` returns, so re-issuing the same command with
+    ``resume=True`` continues bit for bit. The handlers are installed from
+    the main thread only; elsewhere the STOP file is the only request.
+    """
+
+    def __init__(self, signals=(signal.SIGTERM, signal.SIGINT)):
+        self.requested = False
+        self._signals = signals
+        self._saved = {}
+
+    def _handle(self, signum, frame):
+        self.requested = True
+
+    def __enter__(self):
+        try:
+            for s in self._signals:
+                self._saved[s] = signal.signal(s, self._handle)
+        except ValueError:  # not the main thread: STOP-file polling only
+            self._saved = {}
+        return self
+
+    def __exit__(self, *exc):
+        for s, h in self._saved.items():
+            signal.signal(s, h)
+        return False
+
+
+def run_training(
+    config: ExperimentConfig,
+    workdir: str,
+    *,
+    steps: Optional[int] = None,
+    synthetic: bool = False,
+    resume: bool = False,
+    device="cuda",
+) -> Tuple[GANState, dict]:
+    """The reference's train() loop (mnist_moco_ode.py:51-195), config-driven,
+    on ``device`` -> (state, the last step's losses).
+
+    Writes ``<workdir>/metrics.jsonl`` and, with ``config.tensorboard``,
+    ``<workdir>/tb/events.out.tfevents.*`` every ``log_every`` steps;
+    ``<workdir>/samples/gensamples_id<step>.gif`` every ``sample_every``;
+    ``<workdir>/checkpoints/<step>/`` every ``checkpoint_every`` and at the
+    end. A non-finite loss at a log boundary checkpoints the last state and
+    raises FloatingPointError.
+
+    Preemption-safe: SIGTERM/SIGINT, or ``<workdir>/STOP`` (checked every
+    ``log_every`` steps, then deleted), finish the current step, checkpoint,
+    and return with ``"preempted"`` (the step reached) in the metrics dict;
+    rerunning with ``resume=True`` continues from the latest checkpoint.
+    ``config.mesh`` waits for ROADMAP M17.
+    """
+    if config.mesh:
+        raise NotImplementedError(
+            f"mesh={config.mesh!r}: parallel layouts wait for ROADMAP M17")
+    dev = resolve_device(device)
+    os.makedirs(workdir, exist_ok=True)
+    steps = steps if steps is not None else config.steps
+    trainer = build_trainer(config, device=dev)
+    state = trainer.init_state()
+
+    ckpt = CheckpointManager(os.path.join(workdir, "checkpoints"))
+    start_step = 0
+    if resume and ckpt.latest_step() is not None:
+        state = ckpt.restore(state)
+        start_step = state.step
+    img_sampler, vid_sampler = build_data(config, synthetic=synthetic,
+                                          start_step=start_step)
+
+    logger = MetricsLogger(os.path.join(workdir, "metrics.jsonl"),
+                           print_every=config.log_every)
+    tb = (EventWriter(os.path.join(workdir, "tb")) if config.tensorboard
+          else None)
+    throughput = Throughput(config.batch_size)
+    step_fn = make_host_data_step(trainer)
+
+    metrics = {}
+    preempted = False
+    stop_path = os.path.join(workdir, "STOP")
+    throughput.start()
+    try:
+        with GracefulStop() as stop:
+            for step in range(start_step, steps):
+                images = _stack_d_batches(
+                    img_sampler, step_rng(config.seed, step, IMAGES),
+                    config.d_iters)
+                videos = _stack_d_batches(
+                    vid_sampler, step_rng(config.seed, step, VIDEOS),
+                    config.d_iters)
+                metrics = step_fn(state, images, videos, step_generator(
+                    config.seed, step, TRAIN, dev))
+                throughput.update()
+
+                if step % config.log_every == 0:
+                    # float() waits for the step: the one host sync per log
+                    # boundary, after which Throughput reads true
+                    vals = {k: float(v) for k, v in metrics.items()}
+                    if not all(np.isfinite(v) for v in vals.values()):
+                        logger.log(step, vals,
+                                   extra={"event": "non_finite_loss"})
+                        ckpt.save(step, state, wait=True)
+                        raise FloatingPointError(
+                            f"non-finite loss at step {step}: {vals}; "
+                            f"last state checkpointed to {workdir}/checkpoints")
+                    clips_per_sec = throughput.clips_per_sec_per_chip()
+                    logger.log(step, vals,
+                               extra={"clips_per_sec": clips_per_sec})
+                    if tb is not None:
+                        tb.add_scalars(
+                            {f"train/{k}": v for k, v in vals.items()}
+                            | {"perf/clips_per_sec": clips_per_sec}, step)
+                        tb.flush()
+                if config.sample_every and step % config.sample_every == 0:
+                    _write_samples(trainer, state, os.path.join(
+                        workdir, "samples", f"gensamples_id{step}.gif"), config)
+                if config.checkpoint_every and step % config.checkpoint_every == 0:
+                    ckpt.save(step, state)
+                if stop.requested or (step % config.log_every == 0
+                                      and os.path.exists(stop_path)):
+                    preempted = True
+                    logger.log(step, metrics, extra={"event": "preempted"})
+                    if os.path.exists(stop_path):
+                        os.remove(stop_path)  # honored; let --resume continue
+                    break
+
+        final_step = state.step
+        ckpt.save(final_step, state, wait=True)
+    finally:
+        logger.close()
+        if tb is not None:
+            tb.close()
+    out = {k: float(v) for k, v in metrics.items()}
+    if preempted:
+        out["preempted"] = float(final_step)
+    return state, out
+
+
+def _write_samples(trainer: GANTrainer, state: GANState, path: str,
+                   config: ExperimentConfig, n: int = 8):
+    """An n x n grid GIF of ``sample_videos(n * n)`` in eval mode (the
+    reference flips g.eval()/g.train() around sampling,
+    mnist_moco_ode.py:32-35), with ``eval_gen_variables`` (the EMA weights
+    when EMA is on) and noise from the step's ``SAMPLES`` stream."""
+    gen = trainer.gen
+    variables = trainer.eval_gen_variables(state)
+    generator = step_generator(config.seed, state.step, SAMPLES, gen.device)
+    gen.eval()
+    try:
+        with torch.no_grad():
+            videos, _ = torch.func.functional_call(
+                gen, variables, (n * n,), {"generator": generator})
+    finally:
+        gen.train()
+    save_sample_grid(path, videos.float().cpu().numpy(), n=n)
+    return path

@@ -15,9 +15,14 @@ Float32 with TF32 off for matrix products (and for cuDNN's convolutions in
 the training tests). Tolerances: 1e-5 abs on trajectories; rtol 1e-4 on
 gradients, whose backward differentiates the plain version on the card; 1e-4
 abs on losses and parameters after a whole training step, card against CPU
-(every convolution sums in another order on each device).
+(every convolution sums in another order on each device). A resumed run must
+equal an uninterrupted one bit for bit, under deterministic algorithms; for
+cuBLAS those need ``CUBLAS_WORKSPACE_CONFIG``, set here before cuBLAS starts.
 """
 import copy
+import os
+
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import pytest
 import torch
@@ -30,7 +35,7 @@ from ganode_tpu_torch.ops import (
     reference_gru_motion,
     reference_rk4_motion,
 )
-from ganode_tpu_torch.train import build_trainer
+from ganode_tpu_torch.train import build_trainer, run_training, runner
 from ganode_tpu_torch.utils.config import get_config
 
 pytestmark = pytest.mark.cuda
@@ -244,3 +249,52 @@ def test_a_training_step_launches_its_kernel_six_times(cuda, name, module):
                   generator=torch.Generator(cuda).manual_seed(0))
     torch.cuda.synchronize()
     assert module.launches_by_variant == {"warp": 6, "wide": 0}
+
+
+def test_the_device_data_step_launches_k2_six_times(cuda):
+    """mnist_gru with its dataset resident on the card: indices drawn there,
+    one K2 launch per generator sample."""
+    cfg = get_config("mnist_gru", ngf=8, ndf=8, batch_size=4)
+    tr = build_trainer(cfg, device=cuda)
+    state = tr.init_state()
+    videos, _ = runner.synthetic_rotmnist(cfg, n_videos=8)
+    videos = torch.from_numpy(videos).to(cuda)
+    step = runner.make_device_data_step(tr, cfg.d_iters, cfg.video_length)
+    fused_gru.launches = 0
+    fused_gru.launches_by_variant.update(warp=0, wide=0)
+    metrics = step(state, videos, torch.Generator(cuda).manual_seed(0))
+    torch.cuda.synchronize()
+    assert fused_gru.launches_by_variant == {"warp": 6, "wide": 0}
+    assert all(torch.isfinite(v) for v in metrics.values())
+
+
+@pytest.fixture
+def deterministic(cuda, monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    torch.use_deterministic_algorithms(True)
+    yield cuda
+    torch.use_deterministic_algorithms(False)
+
+
+def test_a_resumed_run_on_the_card_equals_an_uninterrupted_one(deterministic,
+                                                               tmp_path):
+    cfg = get_config("ucf_ode", ngf=8, ndf=8, batch_size=4, log_every=1,
+                     sample_every=0, checkpoint_every=0)
+    straight, _ = run_training(cfg, str(tmp_path / "straight"), steps=2,
+                               synthetic=True, device=deterministic)
+    wd = str(tmp_path / "resumed")
+    half, _ = run_training(cfg, wd, steps=1, synthetic=True,
+                           device=deterministic)
+    assert half.step == 1
+    resumed, _ = run_training(cfg, wd, steps=2, synthetic=True, resume=True,
+                              device=deterministic)
+    assert resumed.step == 2
+    nets = ("gen", "dis_img", "dis_vid")
+    for n in nets:
+        a, b = getattr(resumed, n), getattr(straight, n)
+        for k, v in b.module.state_dict().items():
+            assert torch.equal(a.module.state_dict()[k], v), (n, k)
+        for pa, pb in zip(a.module.parameters(), b.module.parameters()):
+            for k in ("exp_avg", "exp_avg_sq", "step"):
+                assert torch.equal(a.opt.state[pa][k], b.opt.state[pb][k]), (n, k)

@@ -1,6 +1,7 @@
 """Helpers shared by the port's training parity tests (``test_torch_train_*``,
-``test_torch_discriminators``): numpy trees, seeded inputs, and the noise a
-JAX training step drew, recorded so the port can be fed the same.
+``test_torch_discriminators``, ``test_torch_runner``): numpy trees, seeded
+inputs, the noise a JAX training step drew, recorded so the port can be fed
+the same, and a bit-for-bit comparison of two port states.
 
 The JAX samplers draw their noise inside from keyed streams. ``record_noise``
 intercepts the modules that consume it (``flax.linen.intercept_methods``):
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import jax
 import numpy as np
+import torch
 from flax import linen as nn
 
 from ganode_tpu.models.mocogan import DCGANTrunk64, MNISTTrunk28
@@ -95,7 +97,6 @@ def record_noise(fn, *args):
 
 
 def to_torch(noise, device="cpu"):
-    import torch
     return [{k: torch.from_numpy(v).to(device) for k, v in d.items()}
             for d in noise]
 
@@ -114,3 +115,26 @@ def assert_close_tree(got, want, rtol, atol_frac, path=""):
     assert got.shape == want.shape, (path, got.shape, want.shape)
     atol = atol_frac * float(np.abs(want).max(initial=0.0))
     np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, err_msg=path)
+
+
+def flat_state(state):
+    """Every tensor of a state, by name: modules, Adam state, EMA."""
+    out = {"step": torch.tensor(state.step)}
+    for name in ("gen", "dis_img", "dis_vid"):
+        net = getattr(state, name)
+        out.update({f"{name}.{k}": v for k, v in net.module.state_dict().items()})
+        names = {p: k for k, p in net.module.named_parameters()}
+        for p, s in net.opt.state.items():
+            out.update({f"{name}.adam.{names[p]}.{k}": v for k, v in s.items()})
+    for k, v in (state.ema_params or {}).items():
+        out[f"ema.{k}"] = v
+    return out
+
+
+def assert_bitwise(got, want):
+    """Two port states hold the same tensors, bit for bit."""
+    a, b = flat_state(got), flat_state(want)
+    assert sorted(a) == sorted(b)
+    for k in b:
+        assert a[k].dtype == b[k].dtype and a[k].device == b[k].device, k
+        assert torch.equal(a[k], b[k]), k
