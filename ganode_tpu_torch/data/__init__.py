@@ -3,6 +3,7 @@ an explicit ``numpy.random.Generator`` (twin of ``ganode_tpu.data``; the
 offline dataset preparation, decoding, clip indexing, transforms and the
 native loader wait for ROADMAP M15)."""
 from .rotmnist import RotMNISTImages, RotMNISTVideos, load_rotmnist, rotate_videos
+from .sampling import ArrayClips, ArrayImages, Sampler
 from .ucf101 import (
     PackedVideoDataset,
     UCF101ClipSampler,
@@ -11,9 +12,12 @@ from .ucf101 import (
 )
 
 __all__ = [
+    "ArrayClips",
+    "ArrayImages",
     "PackedVideoDataset",
     "RotMNISTImages",
     "RotMNISTVideos",
+    "Sampler",
     "UCF101ClipSampler",
     "UCF101ImageSampler",
     "load_rotmnist",

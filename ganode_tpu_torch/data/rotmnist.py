@@ -3,11 +3,8 @@ samplers (twin of ``ganode_tpu/data/rotmnist.py:36-229``; the offline
 preparation, ``build_rotmnist``, ``load_mnist_idx`` and
 ``load_sklearn_digits``, waits for ROADMAP M15).
 
-Each sampler splits a batch into a draw and a gather. ``draw(rng)`` takes
-the random indices from an explicit ``numpy.random.Generator``;
-``gather(*draws)`` is a deterministic function of them. The JAX samplers draw
-the same quantities with ``jax.random``; the two frameworks give different
-numbers from one seed, so the gathers are what the tests hold against JAX.
+The samplers are ``data/sampling.py``'s in-memory ones (a draw from a
+``numpy.random.Generator``, then a gather) over the rescaled clips.
 
 Loader semantics (reference dataset/mnist_rotation.py:18-23,57-63): the
 train split is the first ``split`` videos, the test split the rest; the
@@ -21,6 +18,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 from scipy import ndimage
+
+from .sampling import ArrayClips, ArrayImages
 
 
 def rotate_videos(
@@ -101,40 +100,24 @@ def load_rotmnist(path: str, *, train: bool = True, split: int = 500,
     return X[split:], Y[split:]
 
 
-class _RotMNISTSampler:
-    def __init__(self, videos: np.ndarray, labels: np.ndarray, batch_size: int,
-                 *, value_range: Tuple[float, float] = (0.0, 1.0)):
-        self.videos = np.asarray(videos, np.float32)
-        self.labels = np.asarray(labels)
-        self.batch_size = batch_size
-        lo, hi = value_range
-        if (lo, hi) != (0.0, 1.0):
-            self.videos = self.videos * (hi - lo) + lo
-
-    def sample(self, rng: np.random.Generator) -> Tuple[np.ndarray, np.ndarray]:
-        """``gather(*draw(rng))``: one batch and its labels."""
-        return self.gather(*self.draw(rng))
+def _rescaled(videos: np.ndarray, value_range: Tuple[float, float]):
+    videos = np.asarray(videos, np.float32)
+    lo, hi = value_range
+    return videos if (lo, hi) == (0.0, 1.0) else videos * (hi - lo) + lo
 
 
-class RotMNISTVideos(_RotMNISTSampler):
+class RotMNISTVideos(ArrayClips):
     """Batch sampler of whole clips (B, T, 28, 28, 1)."""
 
-    def draw(self, rng: np.random.Generator) -> Tuple[np.ndarray]:
-        return (rng.integers(0, len(self.videos), self.batch_size),)
-
-    def gather(self, idx) -> Tuple[np.ndarray, np.ndarray]:
-        idx = np.asarray(idx)
-        return self.videos[idx], self.labels[idx]
+    def __init__(self, videos: np.ndarray, labels: np.ndarray, batch_size: int,
+                 *, value_range: Tuple[float, float] = (0.0, 1.0)):
+        super().__init__(_rescaled(videos, value_range), labels, batch_size)
 
 
-class RotMNISTImages(_RotMNISTSampler):
+class RotMNISTImages(ArrayImages):
     """Batch sampler of one random frame per clip (B, 28, 28, 1)
     (reference dataset/mnist_rotation.py:57-63)."""
 
-    def draw(self, rng: np.random.Generator) -> Tuple[np.ndarray, np.ndarray]:
-        idx = rng.integers(0, len(self.videos), self.batch_size)
-        return idx, rng.integers(0, self.videos.shape[1], self.batch_size)
-
-    def gather(self, idx, frames) -> Tuple[np.ndarray, np.ndarray]:
-        idx = np.asarray(idx)
-        return self.videos[idx, np.asarray(frames)], self.labels[idx]
+    def __init__(self, videos: np.ndarray, labels: np.ndarray, batch_size: int,
+                 *, value_range: Tuple[float, float] = (0.0, 1.0)):
+        super().__init__(_rescaled(videos, value_range), labels, batch_size)

@@ -7,9 +7,9 @@ A pack directory holds ``frames.u8`` (every frame of every video, uint8
 ``lengths`` and ``labels``) and ``meta.json``. The format is the JAX
 package's: a pack written by either package reads the same in the other.
 
-As in ``data/rotmnist.py``, each sampler's ``draw(rng)`` takes the random
-video picks and uniforms from a ``numpy.random.Generator``, and
-``gather(pick, u)`` is a deterministic function of them.
+Each sampler's ``draw(rng)`` takes the random video picks and uniforms from
+a ``numpy.random.Generator``, and ``gather(pick, u)`` is a deterministic
+function of them (``data/sampling.py``).
 """
 from __future__ import annotations
 
@@ -18,6 +18,8 @@ import os
 from typing import List, Optional, Tuple
 
 import numpy as np
+
+from .sampling import Sampler
 
 _FRAMES_FILE = "frames.u8"
 _INDEX_FILE = "index.npz"
@@ -85,15 +87,11 @@ def _normalize(x: np.ndarray) -> np.ndarray:
     return (x.astype(np.float32) - 128.0) / 128.0
 
 
-class _PackSampler:
+class _PackSampler(Sampler):
     def draw(self, rng: np.random.Generator) -> Tuple[np.ndarray, np.ndarray]:
         """(a pick among the eligible videos, a uniform in [0, 1)) per clip."""
         return (rng.integers(0, len(self.eligible), self.batch_size),
                 rng.random(self.batch_size))
-
-    def sample(self, rng: np.random.Generator) -> Tuple[np.ndarray, np.ndarray]:
-        """``gather(*draw(rng))``: one batch and its labels."""
-        return self.gather(*self.draw(rng))
 
 
 class UCF101ClipSampler(_PackSampler):

@@ -27,6 +27,8 @@ import torch
 
 from .. import resolve_device
 from ..data import (
+    ArrayClips,
+    ArrayImages,
     RotMNISTImages,
     RotMNISTVideos,
     UCF101ClipSampler,
@@ -84,8 +86,6 @@ def synthetic_rotmnist(config: ExperimentConfig, n_videos: int = 64,
                        seed: int = 0):
     """Synthetic rotated-square videos with the real dataset's geometry, for
     dry runs when no dataset file is present."""
-    from ..data.rotmnist import rotate_videos
-
     rng = np.random.RandomState(seed)
     imgs = np.full((n_videos, 28, 28), -0.5, np.float32)
     for i in range(n_videos):
@@ -109,53 +109,16 @@ def synthetic_ucf(config: ExperimentConfig, n_videos: int = 16, seed: int = 0):
     return videos, rng.randint(0, 101, n_videos)
 
 
-class _ArrayImages:
-    """Random frames of random videos of an in-memory array (the synthetic
-    UCF101 image sampler of ``ganode_tpu/train/runner.py:164-171``)."""
-
-    def __init__(self, videos, labels, batch_size: int):
-        self.videos, self.labels, self.batch_size = videos, labels, batch_size
-
-    def draw(self, rng: np.random.Generator):
-        return (rng.integers(0, len(self.videos), self.batch_size),
-                rng.integers(0, self.videos.shape[1], self.batch_size))
-
-    def gather(self, i, t):
-        return self.videos[np.asarray(i), np.asarray(t)], self.labels[np.asarray(i)]
-
-    def sample(self, rng: np.random.Generator):
-        return self.gather(*self.draw(rng))
-
-
-class _ArrayClips(_ArrayImages):
-    """Random ``n_frame`` windows of an in-memory array (``:173-181``)."""
-
-    def __init__(self, videos, labels, batch_size: int, n_frame: int):
-        super().__init__(videos, labels, batch_size)
-        self.n_frame = n_frame
-
-    def draw(self, rng: np.random.Generator):
-        return (rng.integers(0, len(self.videos), self.batch_size),
-                rng.integers(0, self.videos.shape[1] - self.n_frame + 1,
-                             self.batch_size))
-
-    def gather(self, i, s):
-        i = np.asarray(i)
-        return (np.stack([self.videos[ii, ss:ss + self.n_frame]
-                          for ii, ss in zip(i, np.asarray(s))]), self.labels[i])
-
-
 def build_data(config: ExperimentConfig, *, synthetic: bool = False,
-               value_range=None, start_step: int = 0):
+               value_range=None):
     """Returns (image_sampler, video_sampler), each with ``sample(rng)``.
 
     ``value_range`` (rotmnist only) rescales the served values; training keeps
     the reference's [0, 1] quirk (reference dataset/mnist_rotation.py:28-32),
     but evaluation must compare reals and tanh fakes on the same [-1, 1] scale.
-    ``start_step`` is for the native loader's streams, which wait for ROADMAP
-    M15; the samplers here draw each step's batch from the step alone.
+    The samplers draw each step's batch from the step alone; the native
+    loader's streams, which would need the resume step, wait for ROADMAP M15.
     """
-    del start_step
     if config.dataset == "rotmnist":
         if synthetic or not os.path.exists(config.data_path):
             if not synthetic:
@@ -177,9 +140,9 @@ def build_data(config: ExperimentConfig, *, synthetic: bool = False,
                     f"packed UCF101 not found at {config.data_path}; pack it "
                     "with scripts/pack_ucf101.py or pass synthetic=True")
             videos, labels = synthetic_ucf(config)
-            return (_ArrayImages(videos, labels, config.batch_size),
-                    _ArrayClips(videos, labels, config.batch_size,
-                                config.video_length))
+            return (ArrayImages(videos, labels, config.batch_size),
+                    ArrayClips(videos, labels, config.batch_size,
+                               config.video_length))
         if config.data_loader == "native":
             raise NotImplementedError(
                 "data_loader='native' (the C++ clip loader) waits for "
@@ -319,8 +282,7 @@ def run_training(
     if resume and ckpt.latest_step() is not None:
         state = ckpt.restore(state)
         start_step = state.step
-    img_sampler, vid_sampler = build_data(config, synthetic=synthetic,
-                                          start_step=start_step)
+    img_sampler, vid_sampler = build_data(config, synthetic=synthetic)
 
     logger = MetricsLogger(os.path.join(workdir, "metrics.jsonl"),
                            print_every=config.log_every)
@@ -353,7 +315,7 @@ def run_training(
                     if not all(np.isfinite(v) for v in vals.values()):
                         logger.log(step, vals,
                                    extra={"event": "non_finite_loss"})
-                        ckpt.save(step, state, wait=True)
+                        ckpt.save(step, state)
                         raise FloatingPointError(
                             f"non-finite loss at step {step}: {vals}; "
                             f"last state checkpointed to {workdir}/checkpoints")
@@ -379,7 +341,7 @@ def run_training(
                     break
 
         final_step = state.step
-        ckpt.save(final_step, state, wait=True)
+        ckpt.save(final_step, state)
     finally:
         logger.close()
         if tb is not None:

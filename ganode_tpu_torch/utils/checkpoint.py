@@ -7,7 +7,8 @@ statistics) and ``torch.optim.Adam`` ``state_dict``, the step and the EMA
 parameters. The blob names no path, so a step directory copied elsewhere
 restores bit for bit. A save writes a temporary file and moves it into place
 with ``os.replace``, so a reader never sees half a checkpoint. Saves are
-synchronous: ``wait`` is accepted for the JAX signature and changes nothing.
+synchronous, so there is no ``wait`` flag and nothing to ``close``, as the
+JAX manager's asynchronous orbax saves have.
 
 The step is the only random state a resume needs: the runner derives every
 batch and every noise draw from ``(config.seed, step)``.
@@ -33,7 +34,7 @@ class CheckpointManager:
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, str(step), _BLOB)
 
-    def save(self, step: int, state, *, wait: bool = False) -> bool:
+    def save(self, step: int, state) -> bool:
         """Write ``state`` as step ``step`` -> True; False (nothing written)
         when a checkpoint at this step or a later one exists, as orbax
         does. Keeps the newest ``max_to_keep`` steps."""
@@ -89,6 +90,3 @@ class CheckpointManager:
     def all_steps(self) -> List[int]:
         return sorted(int(d) for d in os.listdir(self.directory)
                       if d.isdigit() and os.path.exists(self._path(int(d))))
-
-    def close(self):
-        """Nothing to wait for: every save has finished when it returns."""

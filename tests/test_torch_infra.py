@@ -173,7 +173,7 @@ def test_checkpoint_round_trip_is_bitwise(tmp_path):
     assert state.ema_params is not None
     mgr = CheckpointManager(str(tmp_path / "ckpt"))
     assert mgr.latest_step() is None and mgr.all_steps() == []
-    assert mgr.save(1, state, wait=True)
+    assert mgr.save(1, state)
     assert mgr.latest_step() == 1
     _, fresh = _trained_state(seed=3)
     restored = mgr.restore(fresh)
@@ -181,7 +181,6 @@ def test_checkpoint_round_trip_is_bitwise(tmp_path):
     assert_bitwise(restored, state)
     assert not any(n.endswith(".tmp") or ".tmp" in n
                    for n in (p.name for p in (tmp_path / "ckpt" / "1").iterdir()))
-    mgr.close()
 
 
 def test_relocated_checkpoint_restores_bitwise(tmp_path):

@@ -160,11 +160,18 @@ def test_samples_are_drawn_in_eval_mode_with_the_ema_weights(tmp_path,
     assert not ema.any() and raw.any()
 
 
-def test_preemption_then_resume_equals_an_uninterrupted_run(tmp_path,
-                                                            monkeypatch):
-    config = _tiny(checkpoint_every=1)
-    full, _ = _run(config, tmp_path / "full", steps=4)
+@pytest.fixture(scope="module")
+def uninterrupted(tmp_path_factory):
+    """The state after four straight steps of ``_tiny()``, which the
+    interrupted-then-resumed runs below must equal bit for bit."""
+    state, _ = _run(_tiny(), tmp_path_factory.mktemp("straight"), steps=4)
+    return state
 
+
+def test_preemption_then_resume_equals_an_uninterrupted_run(tmp_path,
+                                                            monkeypatch,
+                                                            uninterrupted):
+    config = _tiny(checkpoint_every=1)
     orig = runner._stack_d_batches
     calls = {"n": 0}
 
@@ -183,23 +190,22 @@ def test_preemption_then_resume_equals_an_uninterrupted_run(tmp_path,
 
     resumed, m2 = _run(config, wd, steps=4, resume=True)
     assert "preempted" not in m2 and resumed.step == 4
-    assert_bitwise(resumed, full)
+    assert_bitwise(resumed, uninterrupted)
     lines = [json.loads(l) for l in open(wd / "metrics.jsonl")]
     assert [l["step"] for l in lines] == [0, 1, 1, 2, 3]
     assert lines[2]["event"] == "preempted"
 
 
-def test_stop_file_halts_the_run_and_is_consumed(tmp_path):
+def test_stop_file_halts_the_run_and_is_consumed(tmp_path, uninterrupted):
     wd = tmp_path / "run"
     wd.mkdir()
     (wd / "STOP").touch()
     state, metrics = _run(_tiny(), wd, steps=50)
     assert metrics["preempted"] == 1.0 and state.step == 1
     assert not (wd / "STOP").exists()
-    resumed, m2 = _run(_tiny(), wd, steps=3, resume=True)
-    assert "preempted" not in m2 and resumed.step == 3
-    straight, _ = _run(_tiny(), tmp_path / "straight", steps=3)
-    assert_bitwise(resumed, straight)
+    resumed, m2 = _run(_tiny(), wd, steps=4, resume=True)
+    assert "preempted" not in m2 and resumed.step == 4
+    assert_bitwise(resumed, uninterrupted)
 
 
 def test_a_non_finite_loss_halts_with_a_checkpoint(tmp_path, monkeypatch):

@@ -22,6 +22,12 @@ from ganode_tpu.models.mocogan import DCGANTrunk64, MNISTTrunk28
 from ganode_tpu.models.motion import MotionODE
 from ganode_tpu.nn.layers import WarmupMLP
 
+# One torch thread per test process. The suite runs several pytest-xdist
+# workers on the machine's cores; with torch's default of one OpenMP thread
+# per core each worker's tiny ops wait on threads that other workers have
+# taken. Every worker imports this module when it collects the suite.
+torch.set_num_threads(1)
+
 
 def np_tree(tree):
     """A pytree with every leaf as a float32 numpy array (ints kept)."""
