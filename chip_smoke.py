@@ -58,12 +58,33 @@ printing one line before the next starts:
     STOP file, and a resume to 4; every parameter, BatchNorm statistic and
     Adam moment must be equal bit for bit;
 15. trains ``mnist_gru`` at full width through ``make_device_data_step``, its
-    synthetic rotated-MNIST set resident on the card: K2 +6 per step.
+    synthetic rotated-MNIST set resident on the card: K2 +6 per step;
+16. trains ``ucf_wgan_gp_128`` at full width (dcgan128, ngf = ndf = 64,
+    B=32, T=32, 128x128x3, spectral-norm critics, GP 10, d_iters 5, dopri5
+    motion) on uniform random batches on the card, cuDNN TF32 on: 1 warm-up
+    step, then 3 timed steps; ms/step, clips/s, ms per phase, peak memory,
+    the step's FLOPs counted from the shapes (``step_flops``), per dopri5
+    solve its evaluations, accepted and rejected steps, host syncs and ms;
+    requires finite losses, K1 and K2 +0 (dopri5 runs no kernel, as in
+    JAX), every critic's ``u`` advanced 2 * d_iters + 1 times per step and
+    of norm 1 +- 1e-5, and no dopri5 interval out of steps;
+17. takes one reduced-width ``ucf_wgan_gp_128`` step (ngf = ndf = 8, B = 4,
+    T = 16, d_iters 2) on the card and on the CPU in float64, as phase 10:
+    losses, parameters, ``u`` and Adam moments within 1e-4;
+18. solves the dopri5 motion (B=32, T=32) and its adjoint gradient on the
+    card and on the CPU in float64: the trajectory within the solver's
+    tolerance, the gradients within 1e-4;
+19. drives ``run_training`` on ``ucf_wgan_gp_128`` at full width for 2
+    steps, as phase 13 (K1 +0);
+20. trains ``ucf_ode`` at full width with ``compute_dtype="bfloat16"``: K1
+    +6 per step, ms/step beside phase 8's float32 and the video
+    discriminator's forward and backward alone in both dtypes.
 
-Float32 throughout. Matrix products run in full float32
+Float32, except phase 20. Matrix products run in full float32
 (``torch.backends.cuda.matmul.allow_tf32 = False``); the correctness checks
 also turn TF32 off for cuDNN's convolutions, and the serving and training
-times are taken with cuDNN's TF32 both off and on (PyTorch's default).
+times are taken with cuDNN's TF32 on (PyTorch's default), for ``ucf_ode``
+also off.
 
 The last two lines of standard output are one JSON object with a record per
 kernel and the training run, and ``{"ok": true, "device": {...}}``. Any
@@ -113,6 +134,18 @@ TOL_STEP = 1e-4
 TRAIN_STEPS = 5   # timed full-width steps per TF32 setting
 RUNNER_STEPS = 6  # run_training steps; ms/step from the log of the first and last
 DEVICE_DATA_STEPS = 3
+# ucf_wgan_gp_128 (phases 16-19): timed full-width steps after one warm-up,
+# run_training steps, and the dopri5 solves timed alone
+WGAN_STEPS = 3
+WGAN_RUNNER_STEPS = 2
+# A spectral-norm critic's u is a unit vector: after a step, its norm within
+# this of 1 (float32 power iteration).
+TOL_U_NORM = 1e-5
+# dopri5 on the card against the CPU in float64: the trajectories within the
+# solver's own tolerance, atol + rtol |y|; the adjoint's gradients, each
+# tensor's max |diff| over its max |value|, within 10 rtol.
+TOL_DOPRI_GRAD = 1e-4
+FRAME_SIZE = {"mnist28": 28, "dcgan64": 64, "dcgan128": 128}
 REPO = os.path.dirname(os.path.abspath(__file__))
 # Deterministic cuBLAS: must be in the environment before cuBLAS starts.
 CUBLAS_DETERMINISTIC = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
@@ -178,7 +211,7 @@ def random_batches(cfg, device, seed):
     ``(d_iters, B, T, S, S, C)``, as ``bench.py`` feeds its step."""
     import torch
 
-    size = 64 if cfg.trunk == "dcgan64" else 28
+    size = FRAME_SIZE[cfg.trunk]
     g = torch.Generator(device).manual_seed(seed)
     shape = (cfg.d_iters, cfg.batch_size)
     images = torch.rand(shape + (size, size, cfg.n_channels), generator=g,
@@ -187,6 +220,32 @@ def random_batches(cfg, device, seed):
                                  cfg.n_channels), generator=g,
                         device=device) * 2 - 1
     return images, videos
+
+
+def phase_ms(tr, state, images, videos, generator, n):
+    """ms per step of each phase of ``tr``'s step (D_img, D_vid summed over
+    the D iterations, each with its penalty pass; G), between CUDA events on
+    the step's stream, over ``n`` steps."""
+    import torch
+
+    d = tr.d_iters
+    tot = {"d_img": 0.0, "d_vid": 0.0, "g": 0.0}
+    for _ in range(n):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 * d + 2)]
+        ev[0].record()
+        for i in range(d):
+            tr._d_phase(state, "image", images[i], {}, generator)
+            ev[2 * i + 1].record()
+            tr._d_phase(state, "video", videos[i], {}, generator)
+            ev[2 * i + 2].record()
+        tr._g_update(state, {}, {}, generator)
+        ev[-1].record()
+        torch.cuda.synchronize()
+        for i in range(d):
+            tot["d_img"] += ev[2 * i].elapsed_time(ev[2 * i + 1])
+            tot["d_vid"] += ev[2 * i + 1].elapsed_time(ev[2 * i + 2])
+        tot["g"] += ev[-2].elapsed_time(ev[-1])
+    return {k: v / n for k, v in tot.items()}
 
 
 def backward_ms(module, motion_args, events_ms):
@@ -201,12 +260,13 @@ def backward_ms(module, motion_args, events_ms):
                                                  retain_graph=True), 10)
 
 
-def card_vs_cpu_step(dev):
-    """One ``train_step`` of a reduced-width ``ucf_ode`` (ngf = ndf = 8, B=4,
-    T=16) from one state and one noise tape, on the card in float32 and on
-    the CPU in float64 (the plain motion) and in float32 -> (the card's max
-    |loss diff| and max |diff| over every net's parameters and statistics
-    from float64, the same two for the CPU's float32, tensors compared).
+def card_vs_cpu_step(dev, cfg_r):
+    """One ``train_step`` of the reduced-width config ``cfg_r`` from one
+    state and one noise tape, on the card in float32 and on the CPU in
+    float64 (the plain motion) and in float32 -> (the card's max |loss diff|
+    and max |diff| over every net's parameters, statistics (BatchNorm's,
+    spectral norm's ``u``) and Adam moments from float64, the same two for
+    the CPU's float32, tensors compared).
 
     The state is carried across after one CPU step: Adam's first step from
     zero moments is lr * sign(g), which turns the rounding of a near-zero
@@ -221,7 +281,6 @@ def card_vs_cpu_step(dev):
     from ganode_tpu_torch.train import build_trainer
     from ganode_tpu_torch.utils.config import get_config
 
-    cfg_r = get_config("ucf_ode", ngf=8, ndf=8, batch_size=4)
     ims, vids = random_batches(cfg_r, "cpu", 7)
     tr_c = build_trainer(cfg_r, device="cpu")
     st_c = tr_c.init_state()
@@ -243,9 +302,14 @@ def card_vs_cpu_step(dev):
                 for d in tr.noise_tape(torch.Generator().manual_seed(7), device)]
         metrics = tr.train_step(st, ims.to(device, dtype),
                                 vids.to(device, dtype), noise=tape)
-        return ({k: v.item() for k, v in metrics.items()},
-                {f"{n}.{k}": v.detach().cpu().double()
-                 for n in nets for k, v in getattr(tr, n).state_dict().items()})
+        out = {f"{n}.{k}": v.detach().cpu().double()
+               for n in nets for k, v in getattr(tr, n).state_dict().items()}
+        for n in nets:
+            names = {p: k for k, p in getattr(tr, n).named_parameters()}
+            for p, a in getattr(st, n).opt.state.items():
+                for m in ("exp_avg", "exp_avg_sq"):
+                    out[f"{n}.adam.{names[p]}.{m}"] = a[m].cpu().double()
+        return {k: v.item() for k, v in metrics.items()}, out
 
     m_card, s_card = take_step(dev, torch.float32)
     m_cpu, s_cpu = take_step("cpu", torch.float32)
@@ -283,28 +347,6 @@ def train_phases(dev, card, events_ms) -> dict:
     rec = {"config": "ucf_ode", "batch": cfg.batch_size, "frames": cfg.video_length,
            "d_iters": cfg.d_iters, "card": card}
 
-    def phase_ms(n):
-        """ms per step of each phase (D_img, D_vid summed over the D
-        iterations; G), between CUDA events on the step's stream."""
-        tot = {"d_img": 0.0, "d_vid": 0.0, "g": 0.0}
-        for _ in range(n):
-            ev = [torch.cuda.Event(enable_timing=True)
-                  for _ in range(2 * cfg.d_iters + 2)]
-            ev[0].record()
-            for i in range(cfg.d_iters):
-                tr._d_phase(state, "image", images[i], {}, gt)
-                ev[2 * i + 1].record()
-                tr._d_phase(state, "video", videos[i], {}, gt)
-                ev[2 * i + 2].record()
-            tr._g_update(state, {}, {}, gt)
-            ev[-1].record()
-            torch.cuda.synchronize()
-            for i in range(cfg.d_iters):
-                tot["d_img"] += ev[2 * i].elapsed_time(ev[2 * i + 1])
-                tot["d_vid"] += ev[2 * i + 1].elapsed_time(ev[2 * i + 2])
-            tot["g"] += ev[-2].elapsed_time(ev[-1])
-        return {k: v / n for k, v in tot.items()}
-
     for tf32 in (False, True):
         torch.backends.cudnn.allow_tf32 = tf32
         tag = "on" if tf32 else "off"
@@ -331,7 +373,7 @@ def train_phases(dev, card, events_ms) -> dict:
         require(all(map(math.isfinite, losses.values())),
                 f"non-finite losses {losses}")
         mem = torch.cuda.max_memory_allocated()
-        phases = phase_ms(3)
+        phases = phase_ms(tr, state, images, videos, gt, 3)
         say(f"ucf_ode train_step (cuDNN TF32 {tag}): {ms:.3f} ms/step, "
             f"{cfg.batch_size * 1e3 / ms:.1f} clips/s; phases per step: "
             f"D_img {phases['d_img']:.3f} ms, D_vid {phases['d_vid']:.3f} ms, "
@@ -421,12 +463,14 @@ def train_phases(dev, card, events_ms) -> dict:
 
     phase("one train_step at reduced width (ngf=ndf=8, B=4, T=16): card vs CPU")
     torch.backends.cudnn.deterministic = True
-    err_loss, err_nets, cpu_loss, cpu_nets, n_tensors = card_vs_cpu_step(dev)
+    err_loss, err_nets, cpu_loss, cpu_nets, n_tensors = card_vs_cpu_step(
+        dev, get_config("ucf_ode", ngf=8, ndf=8, batch_size=4))
     torch.backends.cudnn.deterministic = False
     say(f"train_step vs the CPU's float64 step: card (float32, TF32 off, cuDNN "
         f"deterministic) "
         f"losses max|diff| {err_loss:.3e}, parameters and statistics "
-        f"max|diff| {err_nets:.3e} over {n_tensors} tensors (tol {TOL_STEP}); "
+        f"and Adam moments max|diff| {err_nets:.3e} over {n_tensors} tensors "
+        f"(tol {TOL_STEP}); "
         f"the CPU's float32 step {cpu_loss:.3e} and {cpu_nets:.3e}")
     require(err_loss < TOL_STEP and err_nets < TOL_STEP,
             f"card vs CPU: losses {err_loss}, nets {err_nets}")
@@ -564,8 +608,10 @@ def same_state(a, b):
     return n, bad
 
 
-def runner_phase(dev, card, bare_ms) -> dict:
-    """Phase 13: run_training in process at full ucf_ode width."""
+def runner_phase(dev, card, name, steps, bare_ms, k1_per_step) -> dict:
+    """Phases 13 and 19: run_training in process at full width of config
+    ``name`` for ``steps`` steps, K1 launching ``k1_per_step`` times per
+    step exactly."""
     import torch
 
     from ganode_tpu_torch.ops import fused_gru, fused_rk4
@@ -573,28 +619,29 @@ def runner_phase(dev, card, bare_ms) -> dict:
     from ganode_tpu_torch.utils.checkpoint import CheckpointManager
     from ganode_tpu_torch.utils.config import get_config
 
-    phase(f"run_training on ucf_ode at full width: {RUNNER_STEPS} steps, "
-          "cuDNN TF32 on")
+    phase(f"run_training on {name} at full width: {steps} steps, cuDNN TF32 "
+          "on")
     torch.backends.cudnn.allow_tf32 = True
-    cfg = get_config("ucf_ode", log_every=RUNNER_STEPS - 1, sample_every=0,
+    cfg = get_config(name, log_every=steps - 1, sample_every=0,
                      checkpoint_every=0)
     tmp = tempfile.mkdtemp(prefix="ganode_runner_")
     try:
         wd = os.path.join(tmp, "run")
         reset_counts()
-        state, metrics = runner.run_training(cfg, wd, steps=RUNNER_STEPS,
+        state, metrics = runner.run_training(cfg, wd, steps=steps,
                                              synthetic=True, device=dev)
         torch.cuda.synchronize()
         by_variant = dict(fused_rk4.launches_by_variant)
         launches = fused_rk4.launches
-        say(f"run_training: K1 launches {by_variant} in {RUNNER_STEPS} steps, "
+        say(f"run_training {name}: K1 launches {by_variant} in {steps} steps, "
             f"K2 {fused_gru.launches}")
-        require(by_variant == {"warp": 6 * RUNNER_STEPS, "wide": 0}
+        require(by_variant == {"warp": k1_per_step * steps, "wide": 0}
                 and fused_gru.launches == 0,
-                f"K1 did not launch exactly 6 times per runner step: {by_variant}")
+                f"K1 did not launch exactly {k1_per_step} times per runner "
+                f"step: {by_variant}")
         require(all(map(math.isfinite, metrics.values())), f"losses {metrics}")
         first, last = jsonl(os.path.join(wd, "metrics.jsonl"))
-        ms = (last["time"] - first["time"]) * 1e3 / (RUNNER_STEPS - 1)
+        ms = (last["time"] - first["time"]) * 1e3 / (steps - 1)
 
         img_s, vid_s = runner.build_data(cfg, synthetic=True)
         gather, copy_ = [], []
@@ -612,9 +659,9 @@ def runner_phase(dev, card, bare_ms) -> dict:
             copy_.append((time.perf_counter() - t1) * 1e3)
         batch_bytes = ims.nbytes + vids.nbytes
         host_ms = min(gather) + min(copy_)
-        say(f"run_training ucf_ode: {ms:.3f} ms/step over steps 1-"
-            f"{RUNNER_STEPS - 1} (the runner's log), against {bare_ms:.3f} for "
-            f"the bare train_step (phase 8, TF32 on); the host data path alone: "
+        say(f"run_training {name}: {ms:.3f} ms/step over steps 1-"
+            f"{steps - 1} (the runner's log), against {bare_ms:.3f} for "
+            f"the bare train_step (TF32 on); the host data path alone: "
             f"gather {min(gather):.3f} ms + copy to the card {min(copy_):.3f} "
             f"ms of {batch_bytes / 1e6:.1f} MB per step (least of 3) = "
             f"{100 * host_ms / ms:.1f} % of a runner step; {card}")
@@ -633,7 +680,7 @@ def runner_phase(dev, card, bare_ms) -> dict:
         torch.cuda.synchronize()
         restore_ms = (time.perf_counter() - t0) * 1e3
         _, bad = same_state(fresh, state)
-        say(f"checkpoint of the full-width ucf_ode state: {size / 2 ** 20:.1f} "
+        say(f"checkpoint of the full-width {name} state: {size / 2 ** 20:.1f} "
             f"MiB, save {save_ms:.1f} ms, restore {restore_ms:.1f} ms (to the "
             f"card), {len(bad)} tensors differ after the restore; {card}")
         require(not bad, f"restore differs in {bad[:10]}")
@@ -762,6 +809,342 @@ def device_data_phase(dev, card) -> dict:
     require(all(map(math.isfinite, losses.values())), f"losses {losses}")
     return {"ms_per_step": ms, "k2_launches": launches, "losses": losses,
             "dataset_bytes": videos.numel() * 4}
+
+
+def step_flops(cfg) -> dict:
+    """Floating-point operations of one ``train_step`` of ``cfg``, counted
+    from the shapes on the meta device (no data, no card): torch's per-op
+    formulas (``torch.utils.flop_counter``) for every convolution and
+    product of the trunk's samples, each D update (real and fake passes, the
+    gradient penalty's pass with its double backward, the weight gradients)
+    and the G update (samples with gradients through both critics). The
+    motion solves (~1e-5 of the total) and element-wise work are left out.
+    Runs on the CPU: ``python3 -c "import chip_smoke as c; from
+    ganode_tpu_torch.utils.config import get_config as g;
+    print(c.step_flops(g('ucf_wgan_gp_128')))"``."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.flop_counter import flop_registry
+
+    from ganode_tpu_torch.train import NetState, build_trainer
+
+    class Count(TorchDispatchMode):
+        total = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            f = flop_registry.get(func._overloadpacket)
+            if f is not None:
+                self.total += f(*args, **(kwargs or {}), out_val=out)
+            return out
+
+    def count(fn):
+        with Count() as c:
+            fn()
+        return c.total
+
+    tr = build_trainer(cfg, device="cpu")
+    for net in (tr.gen, tr.dis_img, tr.dis_vid):
+        net.to("meta")
+    b, t, s = cfg.batch_size, cfg.video_length, FRAME_SIZE[cfg.trunk]
+    dim_z = cfg.dim_z_content + cfg.dim_z_category + cfg.dim_z_motion
+    img = torch.zeros((b, s, s, cfg.n_channels), device="meta")
+    vid = torch.zeros((b, t, s, s, cfg.n_channels), device="meta")
+
+    tr._apply = lambda *a: None  # count the gradients, take no step
+
+    def d_update(mod, real):
+        return lambda: tr._d_update(NetState(mod, None), real, real, None,
+                                    gp_eps=torch.zeros((b,) + (1,) * (
+                                        real.ndim - 1), device="meta"))
+
+    def g_update():
+        zv = torch.zeros((b * t, dim_z), device="meta", requires_grad=True)
+        zi = torch.zeros((b, dim_z), device="meta", requires_grad=True)
+        v = tr.gen.main(zv).reshape(b, t, cfg.n_channels, s, s)
+        i = tr.gen.main(zi)
+        loss = (tr.g_loss_fn(tr.dis_vid(v.permute(0, 1, 3, 4, 2))[0])
+                + tr.g_loss_fn(tr.dis_img(i.permute(0, 2, 3, 1))[0]))
+        torch.autograd.grad(loss, list(tr.gen.main.parameters()))
+
+    with torch.no_grad():
+        samples = count(lambda: tr.gen.main(
+            torch.zeros((b * t + b, dim_z), device="meta")))
+    out = {"samples": samples, "d_img_update": count(d_update(tr.dis_img, img)),
+           "d_vid_update": count(d_update(tr.dis_vid, vid)),
+           "g_update": count(g_update)}
+    out["step"] = (cfg.d_iters * (out["samples"] + out["d_img_update"]
+                                  + out["d_vid_update"]) + out["g_update"])
+    return out
+
+
+def sn_convs(critic):
+    from ganode_tpu_torch.nn import SNConv
+
+    return [m for m in critic.modules() if isinstance(m, SNConv)]
+
+
+def wgan_phases(dev, card, events_ms) -> dict:
+    """Phases 16-18 (module docstring); returns the record's entry."""
+    import torch
+
+    from ganode_tpu_torch.models.motion import MotionODE
+    from ganode_tpu_torch.ode import adaptive
+    from ganode_tpu_torch.ops import fused_gru, fused_rk4
+    from ganode_tpu_torch.train import build_trainer
+    from ganode_tpu_torch.utils.config import get_config
+
+    cfg = get_config("ucf_wgan_gp_128")
+    d = cfg.d_iters
+    phase(f"train ucf_wgan_gp_128 at full width (dcgan128, ngf=ndf="
+          f"{cfg.ngf}, B={cfg.batch_size}, T={cfg.video_length}, 128x128x3, "
+          f"SN critics, GP {cfg.gp_weight}, d_iters {d}, dopri5 rtol 1e-5 "
+          f"atol 1e-6): 1 warm-up + {WGAN_STEPS} timed steps, cuDNN TF32 on "
+          "(PyTorch's default)")
+    torch.backends.cudnn.allow_tf32 = True
+    tr = build_trainer(cfg, device=dev)
+    state = tr.init_state()
+    gt = torch.Generator(dev).manual_seed(0)
+    images, videos = random_batches(cfg, dev, 0)
+    critics = {"dis_img": tr.dis_img, "dis_vid": tr.dis_vid}
+    advances = dict.fromkeys(critics, 0)
+
+    def count_advances(key):
+        def hook(module, args, kwargs):
+            advances[key] += bool(kwargs["update_stats"])
+        return hook
+
+    hooks = [c.SNConv_0.register_forward_pre_hook(count_advances(k),
+                                                  with_kwargs=True)
+             for k, c in critics.items()]
+    t0 = time.perf_counter()
+    tr.train_step(state, images, videos, generator=gt)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    adaptive.tally.clear()
+    advances.update(dict.fromkeys(critics, 0))
+    u_before = {k: [m.u.clone() for m in sn_convs(c)]
+                for k, c in critics.items()}
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(WGAN_STEPS):
+        metrics = tr.train_step(state, images, videos, generator=gt)
+    b.record()
+    torch.cuda.synchronize()
+    ms = a.elapsed_time(b) / WGAN_STEPS
+    mem = torch.cuda.max_memory_allocated()
+    k1, k2 = fused_rk4.launches, fused_gru.launches
+    tally = dict(adaptive.tally)
+    per_step = {k: v / WGAN_STEPS for k, v in advances.items()}
+    for h in hooks:
+        h.remove()
+    losses = {k: v.item() for k, v in metrics.items()}
+    say(f"ucf_wgan_gp_128 train_step: K1 launches {k1}, K2 {k2} in "
+        f"{WGAN_STEPS} steps (dopri5 runs no kernel, as in JAX); u advances "
+        f"per step {per_step}; dopri5 solves {tally}")
+    require(k1 == 0 and k2 == 0, f"K1 {k1} / K2 {k2} launched on the dopri5 "
+            "path")
+    require(all(map(math.isfinite, losses.values())), f"losses {losses}")
+    # u advances once per train-mode forward: real and fake passes of each D
+    # update, and once in the G update; the penalty pass keeps it
+    want_adv = 2 * d + 1
+    require(all(v == want_adv for v in per_step.values()),
+            f"u advanced {per_step} times per step, not {want_adv}")
+    norms = {f"{k}.SNConv_{i}": m.u.norm().item()
+             for k, c in critics.items() for i, m in enumerate(sn_convs(c))}
+    require(all(abs(n - 1.0) <= TOL_U_NORM for n in norms.values()),
+            f"u norms {norms}")
+    # (the last layers have one output: their u is +-1 and cannot move)
+    moved = all(not torch.equal(m.u, u0) for k, c in critics.items()
+                for m, u0 in zip(sn_convs(c), u_before[k]) if m.u.numel() > 1)
+    require(moved, "a u did not move in the timed steps")
+    want_fwd, want_bwd = WGAN_STEPS * (2 * d + 2), WGAN_STEPS * 2
+    require(tally.get("forward_calls") == want_fwd
+            and tally.get("backward_calls") == want_bwd,
+            f"dopri5 solves {tally}, want {want_fwd} forward and {want_bwd} "
+            "backward")
+    require(tally["forward_exhausted"] == 0 and tally["backward_exhausted"] == 0,
+            f"dopri5 ran out of steps: {tally}")
+    solve = {kind: {s: tally[f"{kind}_{s}"] / tally[f"{kind}_calls"]
+                    for s in ("nfe", "accepted", "rejected", "syncs")}
+             for kind in ("forward", "backward")}
+    phases = phase_ms(tr, state, images, videos, gt, 1)
+    flops = step_flops(cfg)
+
+    m = tr.gen.motion
+    params = list(m.parameters())
+
+    def fwd():
+        with torch.no_grad():
+            m(cfg.batch_size, cfg.video_length, generator=gt)
+
+    def fwd_bwd():
+        zs = m(cfg.batch_size, cfg.video_length, generator=gt)
+        torch.autograd.grad(zs.sum(), params)
+
+    solve_ms = {"forward": events_ms(fwd, 5), "forward_backward":
+                events_ms(fwd_bwd, 3)}
+    say(f"ucf_wgan_gp_128 train_step (cuDNN TF32 on): {ms:.3f} ms/step, "
+        f"{cfg.batch_size * 1e3 / ms:.2f} clips/s (warm-up step {warm_s:.1f} "
+        f"s); phases per step: D_img {phases['d_img']:.3f} ms, D_vid (with "
+        f"the GP) {phases['d_vid']:.3f} ms, G {phases['g']:.3f} ms; peak "
+        f"memory {mem / 2 ** 30:.2f} GiB; {flops['step'] / 1e12:.2f} TFLOP "
+        f"per step counted from the shapes (D_vid updates "
+        f"{d * flops['d_vid_update'] / 1e12:.2f}), so "
+        f"{flops['step'] / ms / 1e9:.1f} TFLOP/s over the step and "
+        f"{d * flops['d_vid_update'] / phases['d_vid'] / 1e9:.1f} in D_vid; "
+        f"losses {losses}; {card}")
+    say(f"dopri5 per solve (B={cfg.batch_size}, T={cfg.video_length}, "
+        f"dim {cfg.dim_z_motion}): forward {solve['forward']}, adjoint "
+        f"backward {solve['backward']}; steps_exhausted none; forward alone "
+        f"{solve_ms['forward']:.3f} ms, forward + adjoint backward "
+        f"{solve_ms['forward_backward']:.3f} ms; u norms within "
+        f"{max(abs(n - 1) for n in norms.values()):.2e} of 1; {card}")
+    rec = {"config": "ucf_wgan_gp_128", "batch": cfg.batch_size,
+           "frames": cfg.video_length, "d_iters": d, "card": card,
+           "ms_per_step": ms, "clips_per_s": cfg.batch_size * 1e3 / ms,
+           "warmup_step_s": warm_s, "phase_ms": phases,
+           "max_memory_bytes": mem, "losses": losses, "flops": flops,
+           "u_advances_per_step": per_step, "dopri5_per_solve": solve,
+           "dopri5_solve_ms": solve_ms, "k1_launches": k1,
+           "k2_launches": k2}
+    del tr, state, images, videos, m, params
+    torch.cuda.empty_cache()
+
+    phase("one ucf_wgan_gp_128 step at reduced width (ngf=ndf=8, B=4, T=16, "
+          "d_iters 2): card vs CPU float64")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        err_loss, err_nets, cpu_loss, cpu_nets, n_tensors = card_vs_cpu_step(
+            dev, get_config("ucf_wgan_gp_128", ngf=8, ndf=8, batch_size=4,
+                            video_length=16, d_iters=2))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    say(f"WGAN-GP train_step vs the CPU's float64 step: card (float32, TF32 "
+        f"off, cuDNN deterministic) losses max|diff| {err_loss:.3e}, "
+        f"parameters, u and Adam moments max|diff| {err_nets:.3e} over "
+        f"{n_tensors} tensors (tol {TOL_STEP}); the CPU's float32 step "
+        f"{cpu_loss:.3e} and {cpu_nets:.3e}")
+    require(err_loss < TOL_STEP and err_nets < TOL_STEP,
+            f"WGAN-GP card vs CPU: losses {err_loss}, nets {err_nets}")
+    rec["card_vs_cpu_max_abs"] = {"losses": err_loss, "nets": err_nets,
+                                  "cpu_float32_losses": cpu_loss,
+                                  "cpu_float32_nets": cpu_nets}
+
+    phase("dopri5 motion and its adjoint gradient: card vs CPU float64 "
+          f"(B={cfg.batch_size}, T={cfg.video_length}, dim 16)")
+    motion = MotionODE(cfg.dim_z_motion, method="dopri5")
+    motion.init_parameters(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(3)
+    x0 = torch.randn((cfg.batch_size, cfg.dim_z_motion), generator=g)
+    w = torch.randn((cfg.batch_size, cfg.video_length, cfg.dim_z_motion),
+                    generator=g)
+
+    def solve_on(device, dtype):
+        mod = copy.deepcopy(motion).to(device, dtype)
+        adaptive.tally.clear()
+        zs = mod(cfg.batch_size, cfg.video_length, x0=x0.to(device, dtype))
+        grads = torch.autograd.grad((zs * w.to(device, dtype)).sum(),
+                                    list(mod.parameters()))
+        return (zs.detach().cpu().double(), [t.cpu().double() for t in grads],
+                dict(adaptive.tally))
+
+    z_card, g_card, st_card = solve_on(dev, torch.float32)
+    z_ref, g_ref, st_ref = solve_on("cpu", torch.float64)
+    traj = ((z_card - z_ref).abs()
+            / (motion.atol + motion.rtol * z_ref.abs())).max().item()
+    grad = max(((a - b).abs().max() / b.abs().max()).item()
+               for a, b in zip(g_card, g_ref))
+    say(f"dopri5 card (float32) vs CPU (float64): trajectory max|diff| / "
+        f"(atol + rtol |y|) = {traj:.3e} (tol 1), adjoint gradients worst "
+        f"max|diff|/max|ref| {grad:.3e} (tol {TOL_DOPRI_GRAD}); card solves "
+        f"{st_card}, CPU {st_ref}")
+    require(traj <= 1.0 and grad <= TOL_DOPRI_GRAD,
+            f"dopri5 card vs CPU: trajectory {traj}, gradients {grad}")
+    rec["dopri5_card_vs_cpu"] = {"trajectory_over_tol": traj,
+                                 "grad_rel": grad}
+    return rec
+
+
+def bf16_phase(dev, card, f32_ms, events_ms) -> dict:
+    """Phase 20: the ucf_ode step with compute_dtype="bfloat16", and the
+    video discriminator's forward and backward alone at the training shape
+    in float32 (TF32) and bf16, with cuDNN's benchmark off (as everywhere
+    else here) and on."""
+    import torch
+
+    from ganode_tpu_torch.ops import fused_gru, fused_rk4
+    from ganode_tpu_torch.train import build_trainer
+    from ganode_tpu_torch.utils.config import get_config
+
+    phase("train ucf_ode at full width with compute_dtype=bfloat16 (trunk "
+          f"and discriminators in bf16, float32 params): 2 warm-up + "
+          f"{TRAIN_STEPS} timed steps, cuDNN TF32 on")
+    torch.backends.cudnn.allow_tf32 = True
+    cfg = get_config("ucf_ode", compute_dtype="bfloat16")
+    tr = build_trainer(cfg, device=dev)
+    state = tr.init_state()
+    gt = torch.Generator(dev).manual_seed(0)
+    images, videos = random_batches(cfg, dev, 0)
+    for _ in range(2):
+        tr.train_step(state, images, videos, generator=gt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(TRAIN_STEPS):
+        metrics = tr.train_step(state, images, videos, generator=gt)
+    b.record()
+    torch.cuda.synchronize()
+    ms = a.elapsed_time(b) / TRAIN_STEPS
+    mem = torch.cuda.max_memory_allocated()
+    by_variant = dict(fused_rk4.launches_by_variant)
+    k1_per_step = fused_rk4.launches / TRAIN_STEPS
+    losses = {k: v.item() for k, v in metrics.items()}
+    phases = phase_ms(tr, state, images, videos, gt, 3)
+    say(f"ucf_ode train_step, bf16 compute (cuDNN TF32 on): {ms:.3f} ms/step, "
+        f"{cfg.batch_size * 1e3 / ms:.1f} clips/s, against {f32_ms:.3f} in "
+        f"float32 (phase 8, TF32 on); phases per step: D_img "
+        f"{phases['d_img']:.3f} ms, D_vid {phases['d_vid']:.3f} ms, G "
+        f"{phases['g']:.3f} ms; peak memory {mem / 2 ** 30:.2f} GiB; K1 "
+        f"{by_variant}; losses {losses}; {card}")
+    require(by_variant == {"warp": 6 * TRAIN_STEPS, "wide": 0}
+            and fused_gru.launches == 0,
+            f"K1 did not launch exactly 6 times per step: {by_variant}")
+    require(all(map(math.isfinite, losses.values())), f"losses {losses}")
+    require(all(p.dtype == torch.float32 for p in tr.gen.parameters()),
+            "a bf16 run changed a parameter's dtype")
+
+    from ganode_tpu_torch.models import make_discriminator
+
+    d_vid_ms = {}
+    x = videos[0]
+    for dtype in (None, torch.bfloat16):
+        mod = make_discriminator("full", True, n_channels=3, ksize=4,
+                                 device=dev, dtype=dtype)
+        params = list(mod.parameters())
+
+        def fwd_bwd():
+            torch.autograd.grad(mod(x)[0].sum(), params)
+
+        for bench in (False, True):
+            torch.backends.cudnn.benchmark = bench
+            d_vid_ms[f"{'bf16' if dtype else 'float32'} cudnn.benchmark "
+                     f"{'on' if bench else 'off'}"] = events_ms(fwd_bwd, 5)
+    torch.backends.cudnn.benchmark = False
+    say(f"VideoDiscriminator(ksize=4) forward + backward alone, B="
+        f"{cfg.batch_size}, T={cfg.video_length}, 64x64x3, cuDNN TF32 on: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in d_vid_ms.items())
+        + f"; {card}")
+    return {"ms_per_step": ms, "clips_per_s": cfg.batch_size * 1e3 / ms,
+            "float32_ms_per_step": f32_ms, "phase_ms": phases,
+            "max_memory_bytes": mem, "losses": losses,
+            "k1_launches_per_step": k1_per_step,
+            "video_disc_fwd_bwd_ms": d_vid_ms}
 
 
 def main() -> int:
@@ -1058,10 +1441,18 @@ def main() -> int:
     training = train_phases(dev, card, events_ms)
     entry = {"cli": cli_phase(card)}
     entry["run_training"] = runner_phase(
-        dev, card, training["ucf_ode"]["tf32_on"]["ms_per_step"])
+        dev, card, "ucf_ode", RUNNER_STEPS,
+        training["ucf_ode"]["tf32_on"]["ms_per_step"], 6)
     entry["resume"] = resume_phase(card)
     entry["device_data_step"] = device_data_phase(dev, card)
     training["entry_point"] = entry
+    wgan = wgan_phases(dev, card, events_ms)
+    wgan["run_training"] = runner_phase(
+        dev, card, "ucf_wgan_gp_128", WGAN_RUNNER_STEPS,
+        wgan["ms_per_step"], 0)
+    training["ucf_wgan_gp_128"] = wgan
+    training["ucf_ode_bf16"] = bf16_phase(
+        dev, card, training["ucf_ode"]["tf32_on"]["ms_per_step"], events_ms)
 
     worst = lambda kernel: max(e for (k, _), e in errs.items() if k == kernel)
     record = {"kernels": [

@@ -3,7 +3,7 @@
 
 The JAX side is a nested dict of numpy arrays, as
 ``jax.tree_util.tree_map(np.asarray, variables)`` gives it:
-``{"params": {...}, "batch_stats": {...}}``. The port's modules carry the flax
+``{"params": {...}, "batch_stats": {...}, "spectral": {...}}``. The port's modules carry the flax
 names, so a flax path ``params/main/ConvTranspose_0/kernel`` becomes the key
 ``main.ConvTranspose_0.weight``. The layout rules are those written down, in
 the other direction, in ``ganode_tpu/compat_torch.py``:
@@ -18,6 +18,8 @@ the other direction, in ``ganode_tpu/compat_torch.py``:
 * BatchNorm ``scale``/``bias`` and batch_stats ``mean``/``var`` <->
   ``weight``/``bias``/``running_mean``/``running_var``
 * GRU ``wi``/``wh``/``bi``/``bh`` keep their names and layout.
+* ``SNConv`` and ``SNDense`` kernels follow the conv and dense rules; their
+  ``spectral`` collection's ``u`` <-> the buffer ``u``.
 
 ``num_batches_tracked`` has no JAX counterpart: it is set to 0 on the way in
 and dropped on the way out.
@@ -33,9 +35,9 @@ _STAT_TO_TORCH = {"mean": "running_mean", "var": "running_var"}
 
 
 def _is_conv(module: str, rank: int) -> bool:
-    """A forward convolution's kernel: 2-D or 3-D ``Conv``, or the 3-D
-    ``FastGradConv3D``."""
-    return ((module.startswith("Conv") and rank in (4, 5))
+    """A forward convolution's kernel: 2-D or 3-D ``Conv`` or ``SNConv``,
+    or the 3-D ``FastGradConv3D``."""
+    return ((module.startswith(("Conv", "SNConv")) and rank in (4, 5))
             or (module.startswith("FastGradConv3D") and rank == 5))
 
 
@@ -44,7 +46,7 @@ def _kernel_to_torch(module: str, k: np.ndarray) -> np.ndarray:
         return k[::-1, ::-1].transpose(2, 3, 0, 1)
     if _is_conv(module, k.ndim):  # (*spatial, Ci, Co) -> (Co, Ci, *spatial)
         return k.transpose(k.ndim - 1, k.ndim - 2, *range(k.ndim - 2))
-    if module.startswith("Dense") and k.ndim == 2:
+    if module.startswith(("Dense", "SNDense")) and k.ndim == 2:
         return k.T
     raise ValueError(f"no layout rule for a {k.ndim}-D kernel of module "
                      f"{module!r}")
@@ -55,7 +57,7 @@ def _kernel_from_torch(module: str, w: np.ndarray) -> np.ndarray:
         return w.transpose(2, 3, 0, 1)[::-1, ::-1]
     if _is_conv(module, w.ndim):  # (Co, Ci, *spatial) -> (*spatial, Ci, Co)
         return w.transpose(*range(2, w.ndim), 1, 0)
-    if module.startswith("Dense") and w.ndim == 2:
+    if module.startswith(("Dense", "SNDense")) and w.ndim == 2:
         return w.T
     raise ValueError(f"no layout rule for the {w.ndim}-D weight of module "
                      f"{module!r}")
@@ -88,12 +90,16 @@ def jax_to_torch(variables: dict) -> dict:
             np.asarray(value, np.float32))
         if leaf == "mean":
             sd[".".join(mods + ["num_batches_tracked"])] = torch.tensor(0)
+    for path, value in _leaves(variables.get("spectral") or {}):
+        if path[-1] != "u":
+            raise ValueError(f"unknown spectral variable {'/'.join(path)}")
+        sd[".".join(path)] = torch.tensor(np.asarray(value, np.float32))
     return sd
 
 
 def torch_to_jax(state_dict: dict) -> dict:
     """A port ``state_dict`` -> JAX module variables (numpy leaves)."""
-    out = {"params": {}, "batch_stats": {}}
+    out = {"params": {}, "batch_stats": {}, "spectral": {}}
     stat_names = {v: k for k, v in _STAT_TO_TORCH.items()}
     for key, value in state_dict.items():
         *mods, leaf = key.split(".")
@@ -102,6 +108,8 @@ def torch_to_jax(state_dict: dict) -> dict:
         a = value.detach().cpu().numpy().astype(np.float32)
         if leaf in stat_names:
             collection, name = "batch_stats", stat_names[leaf]
+        elif leaf == "u":
+            collection, name = "spectral", "u"
         elif leaf == "weight" and mods[-1].startswith("BatchNorm"):
             collection, name = "params", "scale"
         elif leaf == "weight":
@@ -115,8 +123,9 @@ def torch_to_jax(state_dict: dict) -> dict:
         for m in mods:
             node = node.setdefault(m, {})
         node[name] = np.ascontiguousarray(a)
-    if not out["batch_stats"]:
-        del out["batch_stats"]
+    for collection in ("batch_stats", "spectral"):
+        if not out[collection]:
+            del out[collection]
     return out
 
 
@@ -131,6 +140,7 @@ def torch_to_jax(state_dict: dict) -> dict:
 # way, the state comes back as nested dicts:
 #
 #     {"gen" | "dis_img" | "dis_vid": {"params", "batch_stats",
+#                                      "spectral" (or None),
 #                                      "opt_state": {"count", "mu", "nu"}},
 #      "step", "ema_params" (or None), "ada" (None)}
 # ---------------------------------------------------------------------------
@@ -163,19 +173,17 @@ def _params_to_torch(tree: dict, module) -> dict:
 
 def gan_state_to_torch(jax_state, state) -> None:
     """Load a flax ``GANState`` (numpy leaves) into the port's ``GANState``
-    in place: each net's params and batch stats, its Adam step and moments,
-    the step count and the EMA params."""
+    in place: each net's params, batch stats and spectral-norm ``u``, its
+    Adam step and moments, the step count and the EMA params."""
     if getattr(jax_state, "ada", None) is not None:
         raise NotImplementedError("the ADA controller state waits for "
                                   "ROADMAP M11")
     for name in NETS:
         src, net = getattr(jax_state, name), getattr(state, name)
-        if getattr(src, "spectral", None) is not None:
-            raise NotImplementedError("spectral-norm state waits for "
-                                      "ROADMAP M9")
         device = next(net.module.parameters()).device
         sd = jax_to_torch({"params": src.params,
-                           "batch_stats": src.batch_stats})
+                           "batch_stats": src.batch_stats,
+                           "spectral": getattr(src, "spectral", None)})
         net.module.load_state_dict({k: v.to(device) for k, v in sd.items()},
                                    strict=True)
         adam = _adam_state(src.opt_state)
@@ -213,6 +221,7 @@ def torch_gan_state_to_jax(state) -> dict:
         out[name] = {
             "params": variables["params"],
             "batch_stats": variables.get("batch_stats", {}),
+            "spectral": variables.get("spectral"),
             "opt_state": {"count": np.int32(steps.pop() if steps else 0),
                           "mu": moment("exp_avg"),
                           "nu": moment("exp_avg_sq")}}

@@ -1,22 +1,24 @@
-"""MoCoGAN generator with pluggable motion, and the BatchNorm
-discriminators (twin of ``ganode_tpu.models``)."""
+"""MoCoGAN generator with pluggable motion, the BatchNorm discriminators and
+the spectral-norm critics (twin of ``ganode_tpu.models``)."""
 from __future__ import annotations
 
 import torch
 
 from .. import resolve_device
 from .mocogan import (
-    DISCRIMINATORS_NOT_PORTED,
     IMAGE_DISCRIMINATORS,
     TRUNKS,
     VIDEO_DISCRIMINATORS,
     CategoricalVideoDiscriminator,
     DCGANTrunk64,
+    DCGANTrunk128,
     FastGradConv3D,
     ImageDiscriminator,
     MNISTTrunk28,
     PatchImageDiscriminator,
     PatchVideoDiscriminator,
+    SNImageDiscriminator,
+    SNVideoDiscriminator,
     VideoDiscriminator,
     VideoGenerator,
 )
@@ -35,10 +37,12 @@ def make_generator(
     ngf: int = 64,
     seed: int = 0,
     device="cuda",
+    dtype: torch.dtype | None = None,
     **motion_kwargs,
 ) -> VideoGenerator:
     """Build the generator for a README variant (``ode`` or ``gru`` so far),
-    with weights drawn from ``seed`` by the JAX package's initialisers.
+    with weights drawn from ``seed`` by the JAX package's initialisers and
+    its trunk computing in ``dtype`` (None: its parameters' own, float32).
 
     The weights are drawn on the CPU from one ``torch.Generator`` and then
     moved to ``device``, so a seed gives the same weights on every device. The
@@ -48,7 +52,8 @@ def make_generator(
         make_motion_sampler(variant, dim_z_motion, **motion_kwargs),
         n_channels=n_channels, dim_z_content=dim_z_content,
         dim_z_category=dim_z_category, dim_z_motion=dim_z_motion,
-        video_length=video_length, ngf=ngf, trunk=trunk), seed, device)
+        video_length=video_length, ngf=ngf, trunk=trunk, dtype=dtype), seed,
+        device)
 
 
 def _on_device(build, seed: int, device) -> torch.nn.Module:
@@ -65,23 +70,41 @@ def _on_device(build, seed: int, device) -> torch.nn.Module:
 
 def make_discriminator(kind: str, video: bool, *, n_channels: int,
                        ndf: int = 64, ksize: int = 4, seed: int = 0,
-                       device="cuda") -> torch.nn.Module:
-    """The image (``video=False``: ``patch`` or ``full``) or video
-    (``video=True``: ``full`` or ``patch``) discriminator of
-    ``ganode_tpu/train/runner.py:67-83``, with N(0, 0.02) conv weights drawn
-    from ``seed``. ``ksize`` is the full video discriminator's kernel."""
-    if kind in DISCRIMINATORS_NOT_PORTED:
-        raise NotImplementedError(
-            f"the {kind!r} discriminators wait for ROADMAP "
-            f"{DISCRIMINATORS_NOT_PORTED[kind]}")
+                       device="cuda",
+                       dtype: torch.dtype | None = None) -> torch.nn.Module:
+    """The image (``video=False``: ``patch``, ``full`` or ``sn``) or video
+    (``video=True``: ``full``, ``patch`` or ``sn``) discriminator of
+    ``ganode_tpu/train/runner.py:67-83``, with weights drawn from ``seed``
+    (N(0, 0.02) conv weights; the spectral-norm critics' ``lecun_normal``
+    and their ``u``). ``ksize`` is the full and spectral-norm video
+    critics' kernel; ``dtype`` the BatchNorm discriminators' compute dtype
+    (the spectral-norm critics run float32, as in JAX)."""
     table = VIDEO_DISCRIMINATORS if video else IMAGE_DISCRIMINATORS
     if kind not in table:
         raise ValueError(f"unknown {'video' if video else 'image'} "
                          f"discriminator {kind!r}; choose from "
-                         f"{sorted(table) + sorted(DISCRIMINATORS_NOT_PORTED)}")
-    kwargs = {"ksize": ksize} if table[kind] is VideoDiscriminator else {}
-    return _on_device(lambda: table[kind](n_channels=n_channels, ndf=ndf,
-                                          **kwargs), seed, device)
+                         f"{sorted(table)}")
+    cls = table[kind]
+    kwargs = {}
+    if cls in (VideoDiscriminator, SNVideoDiscriminator):
+        kwargs["ksize"] = ksize
+    if kind != "sn":
+        kwargs["dtype"] = dtype
+    return _on_device(lambda: cls(n_channels=n_channels, ndf=ndf, **kwargs),
+                      seed, device)
+
+
+# float32 is the parameters' own dtype: nothing is cast
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(config) -> torch.dtype | None:
+    """``config.compute_dtype`` as the modules' ``dtype`` (JAX:
+    runner.py:41): None for float32, where nothing is cast."""
+    if config.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"unknown compute_dtype {config.compute_dtype!r}; "
+                         f"choose from {sorted(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[config.compute_dtype]
 
 
 def discriminators_for_config(config, *, device="cuda"):
@@ -89,7 +112,7 @@ def discriminators_for_config(config, *, device="cuda"):
     builds them for ``config``, their weights drawn from ``config.seed + 1``
     and ``config.seed + 2`` (the generator's from ``config.seed``)."""
     common = dict(n_channels=config.n_channels, ndf=config.ndf,
-                  device=device)
+                  device=device, dtype=compute_dtype(config))
     return (make_discriminator(config.image_disc, False,
                                seed=config.seed + 1, **common),
             make_discriminator(config.video_disc, True,
@@ -99,11 +122,9 @@ def discriminators_for_config(config, *, device="cuda"):
 
 def generator_for_config(config, *, device="cuda") -> VideoGenerator:
     """The generator ``ganode_tpu.train.runner.build_trainer`` builds for
-    ``config``, initialised from ``config.seed``."""
-    if config.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={config.compute_dtype!r}: the port runs float32; "
-            "bf16 autocast waits for ROADMAP M4")
+    ``config``, initialised from ``config.seed``: the motion method passed
+    through as JAX passes it (``dopri5`` for ``ucf_wgan_gp_128``, at the
+    sampler's default tolerances), the trunk in the compute dtype."""
     motion_kwargs = {}
     if config.motion_method is not None and config.variant != "gru":
         motion_kwargs["method"] = config.motion_method
@@ -112,11 +133,14 @@ def generator_for_config(config, *, device="cuda") -> VideoGenerator:
         dim_z_content=config.dim_z_content,
         dim_z_category=config.dim_z_category,
         dim_z_motion=config.dim_z_motion, video_length=config.video_length,
-        ngf=config.ngf, seed=config.seed, device=device, **motion_kwargs)
+        ngf=config.ngf, seed=config.seed, device=device,
+        dtype=compute_dtype(config), **motion_kwargs)
 
 
 __all__ = [
     "CategoricalVideoDiscriminator",
+    "COMPUTE_DTYPES",
+    "DCGANTrunk128",
     "DCGANTrunk64",
     "FastGradConv3D",
     "ImageDiscriminator",
@@ -126,9 +150,12 @@ __all__ = [
     "MotionODE",
     "PatchImageDiscriminator",
     "PatchVideoDiscriminator",
+    "SNImageDiscriminator",
+    "SNVideoDiscriminator",
     "TRUNKS",
     "VideoDiscriminator",
     "VideoGenerator",
+    "compute_dtype",
     "discriminators_for_config",
     "generator_for_config",
     "make_discriminator",

@@ -15,16 +15,30 @@ Submodules carry the flax names (``ConvTranspose_0``, ``BatchNorm_0``,
 ``ganode_tpu_torch.bridge`` maps the JAX variables onto ``state_dict`` keys by
 name. BatchNorm has flax's semantics (``nn.layers.BatchNorm``): train mode
 matches flax ``apply(train=True, mutable=["batch_stats"])``, running variance
-included. The dcgan128 trunk and the spectral-norm discriminators wait for
-ROADMAP M9; the gres64 and odegres64 trunks for M13.
+included. The spectral-norm critics keep their power-iteration state in
+``u`` buffers (``nn.spectral``). The gres64 and odegres64 trunks wait for
+ROADMAP M13.
+
+Compute dtype (``dtype``, the JAX modules' ``dtype=``): given one
+(``torch.bfloat16`` for ``compute_dtype="bfloat16"``), the trunks and the
+BatchNorm discriminators cast their input and each convolution's weight to
+it, as flax's ``dtype`` promotes both, and return float32 where JAX casts
+back; the parameters stay float32, and BatchNorm computes its statistics in
+float32 as flax does (``nn.layers.BatchNorm``). With none (``None``, the
+float32 configs) nothing is cast: the modules compute in their parameters'
+dtype, float32, or float64 for a float64 reference run. The spectral-norm
+critics take no dtype, as in JAX.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..nn.layers import BatchNorm, Noise, leaky_relu
+from ..nn.spectral import SNConv
 from ..ops import conv3d_first
 from .motion import draw_normal
 
@@ -34,6 +48,31 @@ def _deconv(in_ch: int, out_ch: int, kernel: int = 4, stride: int = 2,
     """ConvTranspose with torch (k, s, p) semantics: out = (in-1)*s - 2p + k."""
     return nn.ConvTranspose2d(in_ch, out_ch, kernel, stride, torch_padding,
                               bias=False)
+
+
+def _cast(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``x`` in the compute dtype, or as it is without one."""
+    return x if dtype is None else x.to(dtype)
+
+
+def _back(h: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """An output back in float32 where JAX casts it, under a compute dtype."""
+    return h if dtype is None else h.float()
+
+
+def _run(layer: nn.Module, x: torch.Tensor,
+         dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """A bias-free convolution or transposed convolution computed in
+    ``dtype``: its input and its float32 weight cast, as flax's ``dtype``
+    promotes both. Without a compute dtype it is the layer's own call."""
+    if dtype is None or dtype == layer.weight.dtype:
+        return layer(x)
+    w = layer.weight.to(dtype)
+    if isinstance(layer, nn.ConvTranspose2d):
+        return F.conv_transpose2d(x.to(dtype), w, None, layer.stride,
+                                  layer.padding, layer.output_padding,
+                                  layer.groups, layer.dilation)
+    return layer._conv_forward(x.to(dtype), w, None)
 
 
 def _bn(ch: int) -> BatchNorm:
@@ -53,13 +92,17 @@ def _dcgan_init(module: nn.Module, generator: torch.Generator):
 
 
 class _DeconvPyramid(nn.Module):
-    """z (B', dim_z) -> 1x1 -> 4 -> 8 -> 16 -> 32: four deconv+BN+ReLU stages
-    with ngf*8, *4, *2, *1 channels, shared by both trunks."""
+    """z (B', dim_z) -> 1x1 -> 4 -> 8 -> ...: one deconv+BN+ReLU stage per
+    entry of ``mults``, with ``ngf * mult`` channels (8, 4, 2, 1: to 32x32),
+    in the compute dtype ``dtype``."""
 
-    def __init__(self, dim_z: int, ngf: int):
+    def __init__(self, dim_z: int, ngf: int, dtype: Optional[torch.dtype],
+                 mults=(8, 4, 2, 1)):
         super().__init__()
-        chans = (dim_z, ngf * 8, ngf * 4, ngf * 2, ngf)
-        for i in range(4):
+        self.dtype = dtype
+        self.n_stages = len(mults)
+        chans = (dim_z,) + tuple(ngf * m for m in mults)
+        for i in range(self.n_stages):
             k, s, p = (4, 1, 0) if i == 0 else (4, 2, 1)
             self.add_module(f"ConvTranspose_{i}",
                             _deconv(chans[i], chans[i + 1], k, s, p))
@@ -70,9 +113,9 @@ class _DeconvPyramid(nn.Module):
         _dcgan_init(self, generator)
 
     def pyramid(self, z: torch.Tensor) -> torch.Tensor:
-        h = z[:, :, None, None]
-        for i in range(4):
-            h = getattr(self, f"ConvTranspose_{i}")(h)
+        h = _cast(z[:, :, None, None], self.dtype)
+        for i in range(self.n_stages):
+            h = _run(getattr(self, f"ConvTranspose_{i}"), h, self.dtype)
             h = F.relu(getattr(self, f"BatchNorm_{i}")(h))
         return h
 
@@ -80,12 +123,29 @@ class _DeconvPyramid(nn.Module):
 class DCGANTrunk64(_DeconvPyramid):
     """z (B', dim_z) -> frames (B', n_channels, 64, 64) in [-1, 1]."""
 
-    def __init__(self, n_channels: int, ngf: int = 64, dim_z: int = 66):
-        super().__init__(dim_z, ngf)
+    def __init__(self, n_channels: int, ngf: int = 64, dim_z: int = 66,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(dim_z, ngf, dtype)
         self.ConvTranspose_4 = _deconv(ngf, n_channels)   # 32 -> 64
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        return torch.tanh(self.ConvTranspose_4(self.pyramid(z)))
+        h = _run(self.ConvTranspose_4, self.pyramid(z), self.dtype)
+        return _back(torch.tanh(h), self.dtype)
+
+
+class DCGANTrunk128(_DeconvPyramid):
+    """z (B', dim_z) -> frames (B', n_channels, 128, 128) in [-1, 1]: the
+    dcgan64 pyramid with one more doubling stage, ngf*16 channels first
+    (``ganode_tpu/models/mocogan.py:105``)."""
+
+    def __init__(self, n_channels: int, ngf: int = 64, dim_z: int = 66,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(dim_z, ngf, dtype, mults=(16, 8, 4, 2, 1))
+        self.ConvTranspose_5 = _deconv(ngf, n_channels)   # 64 -> 128
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        h = _run(self.ConvTranspose_5, self.pyramid(z), self.dtype)
+        return _back(torch.tanh(h), self.dtype)
 
 
 class MNISTTrunk28(_DeconvPyramid):
@@ -95,27 +155,30 @@ class MNISTTrunk28(_DeconvPyramid):
     package's equivalent of the reference's ConvTranspose2d(k=1, s=1, p=2).
     """
 
-    def __init__(self, n_channels: int, ngf: int = 64, dim_z: int = 66):
-        super().__init__(dim_z, ngf)
+    def __init__(self, n_channels: int, ngf: int = 64, dim_z: int = 66,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(dim_z, ngf, dtype)
         self.Conv_0 = nn.Conv2d(ngf, n_channels, 1, bias=False)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        h = self.Conv_0(self.pyramid(z))
-        return torch.tanh(h[:, :, 2:-2, 2:-2])            # 32 -> 28
+        h = _run(self.Conv_0, self.pyramid(z), self.dtype)
+        return _back(torch.tanh(h[:, :, 2:-2, 2:-2]), self.dtype)  # 32 -> 28
 
 
-TRUNKS = {"dcgan64": DCGANTrunk64, "mnist28": MNISTTrunk28}
-TRUNKS_NOT_PORTED = {"dcgan128": "M9", "gres64": "M13", "odegres64": "M13"}
+TRUNKS = {"dcgan64": DCGANTrunk64, "mnist28": MNISTTrunk28,
+          "dcgan128": DCGANTrunk128}
+TRUNKS_NOT_PORTED = {"gres64": "M13", "odegres64": "M13"}
 
 
-def make_trunk(name: str, n_channels: int, ngf: int, dim_z: int) -> nn.Module:
+def make_trunk(name: str, n_channels: int, ngf: int, dim_z: int,
+               dtype: Optional[torch.dtype] = None) -> nn.Module:
     if name in TRUNKS_NOT_PORTED:
         raise NotImplementedError(
             f"the {name!r} trunk waits for ROADMAP {TRUNKS_NOT_PORTED[name]}")
     if name not in TRUNKS:
         raise ValueError(f"unknown trunk {name!r}; choose from "
                          f"{sorted(TRUNKS) + sorted(TRUNKS_NOT_PORTED)}")
-    return TRUNKS[name](n_channels, ngf, dim_z)
+    return TRUNKS[name](n_channels, ngf, dim_z, dtype)
 
 
 class VideoGenerator(nn.Module):
@@ -124,13 +187,15 @@ class VideoGenerator(nn.Module):
 
     Every sampler takes its noise as optional explicit tensors (``z_content``,
     ``labels``, ``frame_idx`` here; ``x0`` or ``h0``/``e`` passed on to the
-    motion sampler) and draws the missing ones from ``generator``.
+    motion sampler) and draws the missing ones from ``generator``. ``dtype``
+    is the trunk's compute dtype; the motion runs float32, as in JAX.
     """
 
     def __init__(self, motion: nn.Module, n_channels: int = 3,
                  dim_z_content: int = 50, dim_z_category: int = 0,
                  dim_z_motion: int = 16, video_length: int = 16,
-                 ngf: int = 64, trunk: str = "dcgan64"):
+                 ngf: int = 64, trunk: str = "dcgan64",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.n_channels = n_channels
         self.dim_z_content = dim_z_content
@@ -139,7 +204,8 @@ class VideoGenerator(nn.Module):
         self.video_length = video_length
         self.motion = motion
         self.main = make_trunk(trunk, n_channels, ngf,
-                               dim_z_content + dim_z_category + dim_z_motion)
+                               dim_z_content + dim_z_category + dim_z_motion,
+                               dtype)
 
     def init_parameters(self, generator: torch.Generator):
         self.motion.init_parameters(generator)
@@ -239,9 +305,11 @@ class VideoGenerator(nn.Module):
 # layout, images ``(B, H, W, C)`` or videos ``(B, T, H, W, C)``, runs NCHW /
 # NCDHW inside, and returns ``(logits, aux)``: the last layer's output moved
 # to channels-last and squeezed of every size-1 axis, as ``jnp.squeeze`` does
-# (a batch of one loses its batch axis too). Train mode normalises by batch
-# statistics and advances the running ones, as the JAX modules' default
-# ``train=True`` does. ``generator`` feeds the additive-noise layers, which no
+# (a batch of one loses its batch axis too), in float32. Train mode is the
+# JAX modules' default ``train=True``: BatchNorm normalises by batch
+# statistics and advances the running ones, and the spectral-norm critics
+# advance their ``u``; eval mode (``module.eval()``, JAX's ``train=False``)
+# does neither. ``generator`` feeds the additive-noise layers, which no
 # config turns on.
 # ---------------------------------------------------------------------------
 
@@ -255,29 +323,36 @@ def _conv3d(in_ch: int, out_ch: int, k, s, p) -> nn.Conv3d:
     return nn.Conv3d(in_ch, out_ch, k, s, p, bias=False)
 
 
-def _squeeze(h: torch.Tensor) -> torch.Tensor:
-    """NC... -> channels-last, then every size-1 axis dropped."""
-    return h.movedim(1, -1).squeeze()
+def _squeeze(h: torch.Tensor,
+             dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """NC... -> channels-last, then every size-1 axis dropped; back in
+    float32 under a compute dtype."""
+    return _back(h.movedim(1, -1).squeeze(), dtype)
 
 
 class FastGradConv3D(nn.Module):
     """First video-discriminator conv: kernel 4x4x4, stride (1, 2, 2),
-    padding (0, 1, 1), no bias (``ops.conv3d_first``). Named as flax names it,
-    so its weight is ``FastGradConv3D_0.weight``."""
+    padding (0, 1, 1), no bias (``ops.conv3d_first``), computed in ``dtype``.
+    Named as flax names it, so its weight is ``FastGradConv3D_0.weight``."""
 
-    def __init__(self, in_ch: int, features: int):
+    def __init__(self, in_ch: int, features: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(features, in_ch, 4, 4, 4))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv3d_first(x, self.weight)
+        return conv3d_first(_cast(x, self.dtype),
+                            _cast(self.weight, self.dtype))
 
 
 class _Discriminator(nn.Module):
-    def __init__(self, use_noise: bool, noise_sigma: float | None):
+    def __init__(self, use_noise: bool, noise_sigma: float | None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         # one layer serves every call site: it holds no parameters
         self.noise = Noise(use_noise, noise_sigma or 0.0)
+        self.dtype = dtype
 
     def init_parameters(self, generator: torch.Generator):
         _dcgan_init(self, generator)
@@ -287,8 +362,9 @@ class ImageDiscriminator(_Discriminator):
     """64x64 image discriminator -> one logit per image."""
 
     def __init__(self, n_channels: int = 3, ndf: int = 64,
-                 use_noise: bool = False, noise_sigma: float | None = None):
-        super().__init__(use_noise, noise_sigma)
+                 use_noise: bool = False, noise_sigma: float | None = None,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(use_noise, noise_sigma, dtype)
         chans = (n_channels, ndf, ndf * 2, ndf * 4, ndf * 8)
         for i in range(4):
             self.add_module(f"Conv_{i}", _conv2d(chans[i], chans[i + 1]))
@@ -298,11 +374,13 @@ class ImageDiscriminator(_Discriminator):
 
     def forward(self, x: torch.Tensor, *, generator=None):
         noise = lambda h: self.noise(h, generator=generator)
-        h = leaky_relu(self.Conv_0(noise(x.permute(0, 3, 1, 2))))
+        dt = self.dtype
+        h = noise(_cast(x.permute(0, 3, 1, 2), dt))
+        h = leaky_relu(_run(self.Conv_0, h, dt))
         for i in range(3):
-            h = getattr(self, f"Conv_{i + 1}")(noise(h))
+            h = _run(getattr(self, f"Conv_{i + 1}"), noise(h), dt)
             h = leaky_relu(getattr(self, f"BatchNorm_{i}")(h))
-        return _squeeze(self.Conv_4(h)), None
+        return _squeeze(_run(self.Conv_4, h, dt), dt), None
 
 
 class PatchImageDiscriminator(_Discriminator):
@@ -310,8 +388,9 @@ class PatchImageDiscriminator(_Discriminator):
     28x28)."""
 
     def __init__(self, n_channels: int = 3, ndf: int = 64,
-                 use_noise: bool = False, noise_sigma: float | None = None):
-        super().__init__(use_noise, noise_sigma)
+                 use_noise: bool = False, noise_sigma: float | None = None,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(use_noise, noise_sigma, dtype)
         chans = (n_channels, ndf, ndf * 2, ndf * 4, 1)
         for i in range(4):
             self.add_module(f"Conv_{i}", _conv2d(chans[i], chans[i + 1]))
@@ -320,11 +399,13 @@ class PatchImageDiscriminator(_Discriminator):
 
     def forward(self, x: torch.Tensor, *, generator=None):
         noise = lambda h: self.noise(h, generator=generator)
-        h = leaky_relu(self.Conv_0(noise(x.permute(0, 3, 1, 2))))
+        dt = self.dtype
+        h = noise(_cast(x.permute(0, 3, 1, 2), dt))
+        h = leaky_relu(_run(self.Conv_0, h, dt))
         for i in range(2):
-            h = getattr(self, f"Conv_{i + 1}")(noise(h))
+            h = _run(getattr(self, f"Conv_{i + 1}"), noise(h), dt)
             h = leaky_relu(getattr(self, f"BatchNorm_{i}")(h))
-        return _squeeze(self.Conv_3(noise(h))), None
+        return _squeeze(_run(self.Conv_3, noise(h), dt), dt), None
 
 
 _K3, _S3, _P3 = (4, 4, 4), (1, 2, 2), (0, 1, 1)
@@ -334,9 +415,10 @@ class PatchVideoDiscriminator(_Discriminator):
     """3-D patch video discriminator, input ``(B, T, H, W, C)``."""
 
     def __init__(self, n_channels: int = 3, ndf: int = 64,
-                 use_noise: bool = False, noise_sigma: float | None = None):
-        super().__init__(use_noise, noise_sigma)
-        self.FastGradConv3D_0 = FastGradConv3D(n_channels, ndf)
+                 use_noise: bool = False, noise_sigma: float | None = None,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(use_noise, noise_sigma, dtype)
+        self.FastGradConv3D_0 = FastGradConv3D(n_channels, ndf, dtype)
         chans = (ndf, ndf * 2, ndf * 4, 1)
         for i in range(3):
             self.add_module(f"Conv_{i}",
@@ -346,11 +428,22 @@ class PatchVideoDiscriminator(_Discriminator):
 
     def forward(self, x: torch.Tensor, *, generator=None):
         noise = lambda h: self.noise(h, generator=generator)
-        h = leaky_relu(self.FastGradConv3D_0(noise(x.permute(0, 4, 1, 2, 3))))
+        dt = self.dtype
+        h = leaky_relu(self.FastGradConv3D_0(
+            noise(_cast(x.permute(0, 4, 1, 2, 3), dt))))
         for i in range(2):
-            h = getattr(self, f"Conv_{i}")(noise(h))
+            h = _run(getattr(self, f"Conv_{i}"), noise(h), dt)
             h = leaky_relu(getattr(self, f"BatchNorm_{i}")(h))
-        return _squeeze(self.Conv_2(h)), None
+        return _squeeze(_run(self.Conv_2, h, dt), dt), None
+
+
+def _check_clip_length(name: str, ksize: int, t: int):
+    """Five unpadded time convs each take ``ksize - 1`` frames: a shorter
+    clip would give an empty tensor and NaN losses downstream."""
+    min_t = 5 * ksize - 4
+    if t < min_t:
+        raise ValueError(f"{name}(ksize={ksize}) needs clips with at least "
+                         f"{min_t} frames, got T={t}")
 
 
 class VideoDiscriminator(_Discriminator):
@@ -362,12 +455,13 @@ class VideoDiscriminator(_Discriminator):
 
     def __init__(self, n_channels: int = 3, n_output_neurons: int = 1,
                  ndf: int = 64, ksize: int = 4, use_noise: bool = False,
-                 noise_sigma: float | None = None):
-        super().__init__(use_noise, noise_sigma)
+                 noise_sigma: float | None = None,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(use_noise, noise_sigma, dtype)
         self.ksize = ksize
         k = (ksize,) * 3
         if ksize == 4:
-            self.FastGradConv3D_0 = FastGradConv3D(n_channels, ndf)
+            self.FastGradConv3D_0 = FastGradConv3D(n_channels, ndf, dtype)
         else:
             self.Conv_0 = _conv3d(n_channels, ndf, k, _S3, _P3)
         j = 0 if ksize == 4 else 1  # index of the first BatchNorm'd conv
@@ -382,17 +476,16 @@ class VideoDiscriminator(_Discriminator):
                         _conv3d(ndf * 8, n_output_neurons, k, 1, 0))
 
     def forward(self, x: torch.Tensor, *, generator=None):
-        min_t = 5 * self.ksize - 4
-        if x.shape[1] < min_t:
-            raise ValueError(
-                f"VideoDiscriminator(ksize={self.ksize}) needs clips with at "
-                f"least {min_t} frames, got T={x.shape[1]}")
+        _check_clip_length("VideoDiscriminator", self.ksize, x.shape[1])
         noise = lambda h: self.noise(h, generator=generator)
+        dt = self.dtype
         first, *body, last = (getattr(self, n) for n in self._names)
-        h = leaky_relu(first(noise(x.permute(0, 4, 1, 2, 3))))
+        h = noise(_cast(x.permute(0, 4, 1, 2, 3), dt))
+        h = leaky_relu(first(h) if self.ksize == 4 else _run(first, h, dt))
         for i, conv in enumerate(body):
-            h = leaky_relu(getattr(self, f"BatchNorm_{i}")(conv(noise(h))))
-        return _squeeze(last(h)), None
+            h = leaky_relu(getattr(self, f"BatchNorm_{i}")(
+                _run(conv, noise(h), dt)))
+        return _squeeze(_run(last, h, dt), dt), None
 
 
 class CategoricalVideoDiscriminator(_Discriminator):
@@ -402,12 +495,13 @@ class CategoricalVideoDiscriminator(_Discriminator):
 
     def __init__(self, dim_categorical: int, n_channels: int = 3,
                  n_output_neurons: int = 1, ndf: int = 64, ksize: int = 4,
-                 use_noise: bool = False, noise_sigma: float | None = None):
-        super().__init__(use_noise, noise_sigma)
+                 use_noise: bool = False, noise_sigma: float | None = None,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(use_noise, noise_sigma, dtype)
         self.dim_categorical = dim_categorical
         self.VideoDiscriminator_0 = VideoDiscriminator(
             n_channels, n_output_neurons + dim_categorical, ndf, ksize,
-            use_noise, noise_sigma)
+            use_noise, noise_sigma, dtype)
 
     def forward(self, x: torch.Tensor, *, generator=None):
         h, _ = self.VideoDiscriminator_0(x, generator=generator)
@@ -415,9 +509,72 @@ class CategoricalVideoDiscriminator(_Discriminator):
         return h[..., :split], h[..., split:]
 
 
+class _SNCritic(_Discriminator):
+    """A spectral-norm critic: no BatchNorm (it would correlate the samples
+    of a batch and break the per-sample gradient penalty), every conv an
+    ``SNConv`` named ``SNConv_i``, float32, ``u`` advancing in train mode."""
+
+    def init_parameters(self, generator: torch.Generator):
+        for m in self.modules():
+            if isinstance(m, SNConv):
+                m.init_parameters(generator)
+
+    def _stack(self, h: torch.Tensor, generator) -> torch.Tensor:
+        """Every layer but the last through noise, SNConv and leaky ReLU;
+        the last without noise or activation."""
+        train = self.training
+        convs = [m for m in self.children() if isinstance(m, SNConv)]
+        for conv in convs[:-1]:
+            h = leaky_relu(conv(self.noise(h, generator=generator),
+                                update_stats=train))
+        return convs[-1](h, update_stats=train)
+
+
+class SNImageDiscriminator(_SNCritic):
+    """Spectrally normalized image critic (``ganode_tpu/models/mocogan.py:
+    422``): four 4x4 stride-2 SNConvs (ndf, 2 ndf, 4 ndf, 1) -> a logit map
+    (8x8 at 128x128)."""
+
+    def __init__(self, n_channels: int = 3, ndf: int = 64,
+                 use_noise: bool = False, noise_sigma: float | None = None):
+        super().__init__(use_noise, noise_sigma)
+        chans = (n_channels, ndf, ndf * 2, ndf * 4, 1)
+        for i in range(4):
+            self.add_module(f"SNConv_{i}", SNConv(
+                chans[i], chans[i + 1], (4, 4), 2, 1, use_bias=False))
+
+    def forward(self, x: torch.Tensor, *, generator=None):
+        return _squeeze(self._stack(x.permute(0, 3, 1, 2), generator)), None
+
+
+class SNVideoDiscriminator(_SNCritic):
+    """Spectrally normalized video critic (``ganode_tpu/models/mocogan.py:
+    448``): the ``VideoDiscriminator`` geometry (cubic ``ksize`` kernels,
+    stride (1, 2, 2), unpadded time) with SNConvs and no BatchNorm; input
+    ``(B, T, H, W, C)``, clips of at least ``5 * ksize - 4`` frames."""
+
+    def __init__(self, n_channels: int = 3, n_output_neurons: int = 1,
+                 ndf: int = 64, ksize: int = 4, use_noise: bool = False,
+                 noise_sigma: float | None = None):
+        super().__init__(use_noise, noise_sigma)
+        self.ksize = ksize
+        k = (ksize,) * 3
+        chans = (n_channels, ndf, ndf * 2, ndf * 4, ndf * 8)
+        for i in range(4):
+            self.add_module(f"SNConv_{i}", SNConv(
+                chans[i], chans[i + 1], k, _S3, _P3, use_bias=False))
+        self.SNConv_4 = SNConv(ndf * 8, n_output_neurons, k, 1, 0,
+                               use_bias=False)
+
+    def forward(self, x: torch.Tensor, *, generator=None):
+        _check_clip_length("SNVideoDiscriminator", self.ksize, x.shape[1])
+        return _squeeze(self._stack(x.permute(0, 4, 1, 2, 3),
+                                    generator)), None
+
+
 IMAGE_DISCRIMINATORS = {"patch": PatchImageDiscriminator,
-                        "full": ImageDiscriminator}
+                        "full": ImageDiscriminator,
+                        "sn": SNImageDiscriminator}
 VIDEO_DISCRIMINATORS = {"full": VideoDiscriminator,
-                        "patch": PatchVideoDiscriminator}
-# the spectral-norm critics (SNImageDiscriminator, SNVideoDiscriminator)
-DISCRIMINATORS_NOT_PORTED = {"sn": "M9"}
+                        "patch": PatchVideoDiscriminator,
+                        "sn": SNVideoDiscriminator}

@@ -8,18 +8,23 @@ frameworks give different numbers from one seed, so here the noise is an
 optional explicit tensor (``x0`` for the ODE, ``h0`` and ``e`` for the GRU),
 drawn from ``generator`` only when absent.
 
-On the serving path each sampler runs its whole recursion in one CUDA kernel
-(``ganode_tpu_torch.ops``): the ODE wherever the JAX package would take its
-Pallas kernel (rk4, one step per interval), the GRU always.
-On CPU tensors the same calls run the kernels' plain versions.
+Each sampler runs its whole recursion in one CUDA kernel
+(``ganode_tpu_torch.ops``) wherever the JAX package would take its Pallas
+kernel: the ODE for rk4 with one step per interval and the checkpoint
+adjoint, the GRU always. The ODE's other solvers (the fixed-grid methods,
+sub-steps, the backsolve adjoint and adaptive dopri5) run ``ode``'s plain
+solvers, as JAX runs them without Pallas. On CPU tensors the kernels' calls
+run their plain versions.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..nn.layers import GRUCell, MLP, WarmupMLP
-from ..ode import FIXED_GRID, odeint
+from ..ode import (FIXED_GRID, odeint, odeint_adaptive_adjoint,
+                   odeint_backsolve)
 from ..ops import fused_gru_motion, fused_rk4_motion
 
 
@@ -64,32 +69,53 @@ class MotionGRU(nn.Module):
         return hs.transpose(0, 1)  # (n, T, dim)
 
 
-class MotionODE(nn.Module):
-    """Neural-ODE motion: ``x ~ N(0, I)`` -> warm-up MLP ->
-    ``odeint(f, x, linspace(0, 1, T))`` with ``f = Linear(d, d) -> tanh ->
-    Linear(d, d)``, autonomous (rk4 by default: 60 evaluations at T=16).
+def _mlp_field(t, y, p):
+    """The ODE field ``Linear -> tanh -> Linear`` over explicit parameters
+    ``(w0, b0, w1, b1)`` (``nn.Linear`` layout), as the solvers with their
+    own adjoints take it."""
+    return F.linear(torch.tanh(F.linear(y, p[0], p[1])), p[2], p[3])
 
-    rk4 runs in the fused RK4 kernel (K1), as the JAX package's Pallas kernel
-    does; the other fixed-grid methods run ``odeint``. The JAX module's other
-    options (hidden width, no warm-up, sub-steps, the backsolve adjoint) are
-    set by no config and come with the code that needs them (ROADMAP M9).
+
+class MotionODE(nn.Module):
+    """Neural-ODE motion: ``x ~ N(0, I)`` -> warm-up MLP (``use_warmup``) ->
+    ``odeint(f, x, linspace(0, 1, T))`` with ``f = Linear(d, h) -> tanh ->
+    Linear(h, d)``, autonomous, ``h = dim_hidden or d`` (rk4 by default: 60
+    evaluations at T=16).
+
+    The options are the JAX module's (``ganode_tpu/models/motion.py:81-121``).
+    rk4 with one step per interval and the checkpoint adjoint runs in the
+    fused RK4 kernel (K1), as JAX gates its Pallas kernel; ``method="dopri5"``
+    solves adaptively at ``rtol``/``atol`` with the continuous adjoint
+    (``ode.odeint_adaptive_adjoint``); ``adjoint="backsolve"`` takes the
+    fixed-grid continuous adjoint; every other combination runs ``odeint``
+    and autograd through it (the discrete adjoint, as JAX's checkpointed
+    scan differentiates).
     """
 
-    def __init__(self, dim: int, method: str = "rk4"):
+    def __init__(self, dim: int, dim_hidden: int | None = None,
+                 use_warmup: bool = True, method: str = "rk4",
+                 steps_per_interval: int = 1, adjoint: str = "checkpoint",
+                 rtol: float = 1e-5, atol: float = 1e-6):
         super().__init__()
-        if method == "dopri5":
-            raise NotImplementedError(
-                "adaptive (dopri5) motion waits for ROADMAP M9")
-        if method not in FIXED_GRID:
+        if method != "dopri5" and method not in FIXED_GRID:
             raise ValueError(f"unknown motion method {method!r}; choose from "
-                             f"{sorted(FIXED_GRID)}")
+                             f"{sorted(FIXED_GRID) + ['dopri5']}")
+        if adjoint not in ("checkpoint", "backsolve"):
+            raise ValueError(f"unknown adjoint {adjoint!r}; choose "
+                             "'checkpoint' or 'backsolve'")
         self.dim = dim
         self.method = method
-        self.WarmupMLP_0 = WarmupMLP(dim)
-        self.ode_fn = MLP(dim, (dim, dim))
+        self.steps_per_interval = steps_per_interval
+        self.adjoint = adjoint
+        self.rtol, self.atol = rtol, atol
+        if use_warmup:
+            self.WarmupMLP_0 = WarmupMLP(dim)
+        self.use_warmup = use_warmup
+        self.ode_fn = MLP(dim, (dim_hidden or dim, dim))
 
     def init_parameters(self, generator: torch.Generator):
-        self.WarmupMLP_0.init_parameters(generator)
+        if self.use_warmup:
+            self.WarmupMLP_0.init_parameters(generator)
         self.ode_fn.init_parameters(generator)
 
     def draw_noise(self, n: int, video_len: int, generator) -> dict:
@@ -97,20 +123,35 @@ class MotionODE(nn.Module):
         device: ``x0 (n, dim)``."""
         return {"x0": draw_normal((n, self.dim), generator, generator.device)}
 
+    @property
+    def uses_kernel(self) -> bool:
+        """Whether the solve runs in K1 (JAX's Pallas gate)."""
+        return (self.method == "rk4" and self.steps_per_interval == 1
+                and self.adjoint == "checkpoint")
+
     def forward(self, n: int, video_len: int, *, generator=None,
                 x0=None) -> torch.Tensor:
         l0, l1 = self.ode_fn.Dense_0, self.ode_fn.Dense_1
         if x0 is None:
             x0 = draw_normal((n, self.dim), generator, l0.weight.device)
-        x = self.WarmupMLP_0(x0)
-        # built on the CPU: the kernel reads only its uniform step, on the host
+        x = self.WarmupMLP_0(x0) if self.use_warmup else x0
+        # built on the CPU: the kernel and the adaptive solver read their
+        # times on the host
         ts = torch.linspace(0.0, 1.0, video_len)
-        if self.method == "rk4":
+        params = (l0.weight, l0.bias, l1.weight, l1.bias)
+        if self.uses_kernel:
             zs = fused_rk4_motion(x, l0.weight.t().contiguous(), l0.bias,
                                   l1.weight.t().contiguous(), l1.bias, ts)
+        elif self.method == "dopri5":
+            zs = odeint_adaptive_adjoint(_mlp_field, x, ts, params,
+                                         self.rtol, self.atol)
+        elif self.adjoint == "backsolve":
+            zs = odeint_backsolve(_mlp_field, x, ts.to(x.device), params,
+                                  self.method, self.steps_per_interval)
         else:
-            zs = odeint(lambda t, y: self.ode_fn(y), x, ts.to(x.device),
-                        method=self.method)
+            zs = odeint(_mlp_field, x, ts.to(x.device), params,
+                        method=self.method,
+                        steps_per_interval=self.steps_per_interval)
         return zs.transpose(0, 1)  # (n, T, dim)
 
 

@@ -36,6 +36,14 @@ class BatchNorm(nn.Module):
     The keys are ``nn.BatchNorm2d``'s (``weight``, ``bias``, ``running_mean``,
     ``running_var``, ``num_batches_tracked``), so the bridge maps flax's
     ``scale``/``bias``/``mean``/``var`` onto them as before.
+
+    An input in a lower precision than the float32 parameters (a bfloat16
+    compute dtype) is normalised as flax does under a half-precision
+    ``dtype`` (``flax/linen/normalization.py``, ``_compute_stats`` and
+    ``_normalize``): statistics and normalisation in float32, the result in
+    the input's dtype. ``F.batch_norm`` takes the mixed dtypes so; flax's
+    variance is ``mean(x^2) - mean(x)^2``, torch's the two-pass one, equal
+    up to float32 rounding, far below a bfloat16 step.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5,
@@ -65,7 +73,8 @@ class BatchNorm(nn.Module):
                                 self.weight, self.bias, False, 0.0, self.eps)
         dims = [0, *range(2, x.ndim)]
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=dims, correction=0)
+            var, mean = torch.var_mean(x.to(self.running_mean.dtype),
+                                       dim=dims, correction=0)
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             self.running_var.mul_(1.0 - m).add_(var, alpha=m)

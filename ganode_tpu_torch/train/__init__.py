@@ -12,6 +12,8 @@ from .losses import (
     g_loss_bce,
     g_loss_hinge,
     g_loss_wasserstein,
+    gradient_penalty,
+    r1_penalty,
 )
 from .runner import (
     GracefulStop,
@@ -37,7 +39,9 @@ __all__ = [
     "g_loss_bce",
     "g_loss_hinge",
     "g_loss_wasserstein",
+    "gradient_penalty",
     "make_device_data_step",
+    "r1_penalty",
     "reference_adam",
     "run_training",
 ]

@@ -21,17 +21,26 @@ those of ``ganode_tpu/train/gan.py:10-23``:
   gradient; no ``.grad`` is left behind on any net;
 * Adam is ``torch.optim.Adam(lr, betas, weight_decay)``: the decay is added to
   the gradient before the moments, which is what the JAX package's
-  ``chain(add_decayed_weights, adam)`` mimics.
+  ``chain(add_decayed_weights, adam)`` mimics;
+* a spectral-norm critic's ``u`` advances once per train-mode forward: twice
+  per D loss (once with ``fused_real_fake``) and once per critic in the G
+  update;
+* the gradient penalties (``gp_weight``, ``r1_weight``) run one more D pass
+  on the state the real and fake passes left, in eval mode: BatchNorm on its
+  running statistics, spectral norm from one power iteration that is not
+  stored (JAX's ``train=False`` apply on ``ex2``, ``gan.py:207-257``).
 
 Randomness comes from one ``torch.Generator`` on the training device, or, for
 the generator's samples, from ``noise``: a tape of ``2 * d_iters + 2`` dicts of
 keyword noise (``x0`` or ``h0``/``e``, ``z_content``, and ``frame_idx`` for
 images), one per sample in the step's order: image and video fakes of each D
-iteration, then the G update's video and image. The step reads nothing back
-to the host: the metrics are device tensors.
+iteration, then the G update's video and image. With the gradient penalty on,
+each D iteration's dict also holds its interpolation weights ``gp_eps``. The
+step reads nothing back to the host: the metrics are device tensors (the
+adaptive motion solver syncs inside, ``ode.adaptive``).
 
-Not ported yet: the gradient penalties (ROADMAP M9) and DiffAugment / ADA
-(M11); ``runner.build_trainer`` refuses configs that ask for them.
+Not ported yet: DiffAugment / ADA (ROADMAP M11); ``runner.build_trainer``
+refuses configs that ask for them.
 """
 from __future__ import annotations
 
@@ -41,7 +50,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from .losses import LOSSES
+from .losses import LOSSES, gradient_penalty, r1_penalty
 from .state import GANState, NetState
 
 
@@ -82,6 +91,9 @@ class GANTrainer:
     betas: Tuple[float, float] = (0.5, 0.999)
     weight_decay: float = 1e-5
     param_noise_sigma: float = 0.0
+    # WGAN-GP's gradient penalty and R1's, weights (0 = off)
+    gp_weight: float = 0.0
+    r1_weight: float = 0.0
     # EMA of the generator's parameters (0 = off); eval_gen_variables
     # prefers it
     ema_decay: float = 0.0
@@ -142,8 +154,20 @@ class GANTrainer:
         if self.param_noise_sigma > 0:
             _add_param_noise(params, self.param_noise_sigma, generator)
 
-    def _d_update(self, net: NetState, real, fake, generator):
-        """One discriminator update on a real and a fake batch -> loss."""
+    def _gp_eps(self, real, generator) -> torch.Tensor:
+        """The gradient penalty's interpolation weights, ``U[0, 1)`` shaped
+        ``(B, 1, ...)``, from ``generator``."""
+        if generator is None:
+            raise ValueError("no torch.Generator given for the gradient "
+                             "penalty's gp_eps: pass one, or a noise tape")
+        return torch.rand((real.shape[0],) + (1,) * (real.ndim - 1),
+                          generator=generator, device=real.device,
+                          dtype=real.dtype)
+
+    def _d_update(self, net: NetState, real, fake, generator, gp_eps=None):
+        """One discriminator update on a real and a fake batch -> loss.
+        ``gp_eps`` feeds the gradient penalty (drawn from ``generator`` when
+        absent)."""
         mod = net.module
         if self.fused_real_fake:
             both = self._d_forward(mod, torch.cat([real, fake]), generator)
@@ -152,6 +176,19 @@ class GANTrainer:
             pr = self._d_forward(mod, real, generator)
             pf = self._d_forward(mod, fake, generator)
         loss = self.d_loss_fn(pr, pf)
+        if self.gp_weight > 0 or self.r1_weight > 0:
+            mod.eval()
+            try:
+                d_apply = lambda x: mod(x, generator=generator)[0]
+                if self.gp_weight > 0:
+                    if gp_eps is None:
+                        gp_eps = self._gp_eps(real, generator)
+                    loss = loss + self.gp_weight * gradient_penalty(
+                        d_apply, real, fake, gp_eps)
+                if self.r1_weight > 0:
+                    loss = loss + self.r1_weight * r1_penalty(d_apply, real)
+            finally:
+                mod.train()
         params = list(mod.parameters())
         self._apply(net, params, torch.autograd.grad(loss, params), generator)
         return loss.detach()
@@ -159,11 +196,14 @@ class GANTrainer:
     def _d_phase(self, state: GANState, which: str, real, noise: dict,
                  generator):
         """Sample fakes under ``no_grad`` and update one discriminator:
-        ``which`` is ``"image"`` or ``"video"``."""
+        ``which`` is ``"image"`` or ``"video"``; ``noise`` is the sample's
+        and, with the gradient penalty, ``gp_eps``."""
+        noise = dict(noise)
+        gp_eps = noise.pop("gp_eps", None)
         with torch.no_grad():
             fake = self._sample(f"sample_{which}s", noise, generator)
         net = state.dis_img if which == "image" else state.dis_vid
-        return self._d_update(net, real, fake, generator)
+        return self._d_update(net, real, fake, generator, gp_eps)
 
     def _g_grads(self, state: GANState, noise_vid: dict, noise_img: dict,
                  generator):
@@ -189,8 +229,16 @@ class GANTrainer:
         """One step's noise tape, drawn from ``generator`` (a CPU one gives
         the same tape for every device) and moved to ``device``."""
         order = ["images", "videos"] * self.d_iters + ["videos", "images"]
-        return [{k: v.to(device) for k, v in self.gen.draw_noise(
-            self.batch_size, what, generator).items()} for what in order]
+        tape = []
+        for i, what in enumerate(order):
+            noise = self.gen.draw_noise(self.batch_size, what, generator)
+            if self.gp_weight > 0 and i < 2 * self.d_iters:
+                ndim = 4 if what == "images" else 5
+                noise["gp_eps"] = torch.rand(
+                    (self.batch_size,) + (1,) * (ndim - 1),
+                    generator=generator, device=generator.device)
+            tape.append({k: v.to(device) for k, v in noise.items()})
+        return tape
 
     def train_step(self, state: GANState, images, videos, *, generator=None,
                    noise=None) -> dict:

@@ -1,6 +1,8 @@
 """GAN losses (twin of ``ganode_tpu/train/losses.py``): BCE with logits (the
-reference's default), Wasserstein and hinge. The gradient penalties
-(``gradient_penalty``, ``r1_penalty``) wait for ROADMAP M9."""
+reference's default), Wasserstein and hinge, and the two gradient penalties,
+WGAN-GP's ``gradient_penalty`` and ``r1_penalty``. A penalty differentiates
+the critic's input gradient again, so each runs ``torch.autograd.grad`` with
+``create_graph=True`` (double backward)."""
 from __future__ import annotations
 
 import torch
@@ -42,6 +44,32 @@ def d_loss_hinge(real_logits, fake_logits):
 
 def g_loss_hinge(fake_logits):
     return -torch.mean(fake_logits)
+
+
+def _input_grads(d_apply, x: torch.Tensor) -> torch.Tensor:
+    """``grad_x sum(d_apply(x))``, one row per sample, kept in the graph so
+    that a loss of it differentiates with respect to the critic. ``x`` is a
+    constant: the samples are not differentiated through."""
+    x = x.detach().requires_grad_()
+    (g,) = torch.autograd.grad(d_apply(x).sum(), x, create_graph=True)
+    return g.reshape(x.shape[0], -1)
+
+
+def gradient_penalty(d_apply, real, fake, eps) -> torch.Tensor:
+    """WGAN-GP penalty ``E[(||grad_x D(x_hat)||_2 - 1)^2]`` on the
+    interpolates ``x_hat = eps * real + (1 - eps) * fake``. ``eps`` is given,
+    one uniform draw per sample shaped ``(B, 1, ...)`` (JAX draws it inside
+    from its key)."""
+    grads = _input_grads(d_apply, eps * real + (1.0 - eps) * fake)
+    norms = torch.sqrt(torch.sum(torch.square(grads), dim=1) + 1e-12)
+    return torch.mean((norms - 1.0) ** 2)
+
+
+def r1_penalty(d_apply, real) -> torch.Tensor:
+    """R1 regularization ``(1/2) E[||grad_x D(x)||^2]`` on real samples only
+    (Mescheder et al., ICML 2018)."""
+    grads = _input_grads(d_apply, real)
+    return 0.5 * torch.mean(torch.sum(torch.square(grads), dim=1))
 
 
 LOSSES = {

@@ -53,9 +53,6 @@ def build_trainer(config: ExperimentConfig, *, device="cuda") -> GANTrainer:
     """The trainer ``config`` describes, its three nets on ``device`` with
     weights drawn from ``config.seed``. Configs whose pieces are not ported
     raise ``NotImplementedError`` naming their ROADMAP item."""
-    if config.gp_weight > 0 or config.r1_weight > 0:
-        raise NotImplementedError(
-            "the gradient penalties (gp_weight, r1_weight) wait for ROADMAP M9")
     if config.diffaug or config.ada_target > 0:
         raise NotImplementedError(
             "DiffAugment and ADA (diffaug, ada_target) wait for ROADMAP M11")
@@ -67,6 +64,7 @@ def build_trainer(config: ExperimentConfig, *, device="cuda") -> GANTrainer:
         loss=config.loss, lr=config.lr, betas=config.betas,
         weight_decay=config.weight_decay,
         param_noise_sigma=config.param_noise_sigma,
+        gp_weight=config.gp_weight, r1_weight=config.r1_weight,
         ema_decay=config.ema_decay, fused_real_fake=config.fused_real_fake)
 
 

@@ -18,6 +18,10 @@ abs on losses and parameters after a whole training step, card against CPU
 (every convolution sums in another order on each device). A resumed run must
 equal an uninterrupted one bit for bit, under deterministic algorithms; for
 cuBLAS those need ``CUBLAS_WORKSPACE_CONFIG``, set here before cuBLAS starts.
+The spectral-norm critics and the gradient penalty (no kernel of their own:
+cuDNN's convolutions and their double backward) are held, float32 on the
+card with TF32 off and cuDNN deterministic, against float64 on the CPU at
+1e-4 of each tensor's largest value.
 """
 import copy
 import os
@@ -298,3 +302,71 @@ def test_a_resumed_run_on_the_card_equals_an_uninterrupted_one(deterministic,
         for pa, pb in zip(a.module.parameters(), b.module.parameters()):
             for k in ("exp_avg", "exp_avg_sq", "step"):
                 assert torch.equal(a.opt.state[pa][k], b.opt.state[pb][k]), (n, k)
+
+
+@pytest.fixture
+def card_f32(cuda, monkeypatch):
+    """cuDNN deterministic with TF32 off: the card's float32 against the
+    CPU's float64, as chip_smoke.py's card-vs-CPU phases run."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    return cuda
+
+
+def _sn_critic(kind, device, dtype):
+    from ganode_tpu_torch.models import make_discriminator
+
+    video = kind == "video"
+    return make_discriminator("sn", video, n_channels=3, ndf=8, ksize=4,
+                              seed=1, device="cpu").to(device, dtype), video
+
+
+def _critic_input(video, seed):
+    g = torch.Generator().manual_seed(seed)
+    shape = (4, 16, 64, 64, 3) if video else (4, 128, 128, 3)
+    return torch.rand(shape, generator=g) * 2 - 1
+
+
+@pytest.mark.parametrize("kind", ["image", "video"])
+def test_an_sn_critic_on_the_card_matches_the_cpu_in_float64(card_f32, kind):
+    """Train-mode logits, the advanced ``u`` of every layer, and the
+    gradients of the parameters and the input: card (float32) against the
+    CPU (float64), each tensor's max |diff| over its max |value| < 1e-4."""
+    out = {}
+    for side, device, dtype in (("card", card_f32, torch.float32),
+                                ("cpu", "cpu", torch.float64)):
+        critic, video = _sn_critic(kind, device, dtype)
+        x = _critic_input(video, 0).to(device, dtype).requires_grad_()
+        logits, _ = critic.train()(x)
+        names, params = zip(*critic.named_parameters())
+        grads = torch.autograd.grad((logits ** 2).sum(), [x, *params])
+        out[side] = [logits, *grads] + [b for _, b in critic.named_buffers()]
+    for got, want in zip(out["card"], out["cpu"]):
+        err = (got.double().cpu() - want).abs().max() / want.abs().max()
+        assert err < 1e-4, err
+
+
+@pytest.mark.parametrize("kind", ["image", "video"])
+def test_a_gradient_penalty_on_the_card_matches_the_cpu_in_float64(card_f32,
+                                                                   kind):
+    """The WGAN-GP term in eval mode (as the trainer's penalty pass runs it)
+    and its gradients with respect to the critic (double backward): card
+    (float32) against the CPU (float64), relative 1e-4."""
+    from ganode_tpu_torch.train import gradient_penalty
+
+    out = {}
+    for side, device, dtype in (("card", card_f32, torch.float32),
+                                ("cpu", "cpu", torch.float64)):
+        critic, video = _sn_critic(kind, device, dtype)
+        critic.eval()
+        real = _critic_input(video, 1).to(device, dtype)
+        fake = _critic_input(video, 2).to(device, dtype)
+        eps = torch.rand((4,) + (1,) * (real.ndim - 1),
+                         generator=torch.Generator().manual_seed(3))
+        gp = gradient_penalty(lambda x: critic(x)[0], real, fake,
+                              eps.to(device, dtype))
+        grads = torch.autograd.grad(gp, list(critic.parameters()))
+        out[side] = [gp, *grads]
+    for got, want in zip(out["card"], out["cpu"]):
+        err = (got.double().cpu() - want).abs().max() / want.abs().max()
+        assert err < 1e-4, err

@@ -144,10 +144,16 @@ def test_short_clips_are_refused():
 
 
 def test_unported_and_unknown_discriminators():
-    with pytest.raises(NotImplementedError, match="M9"):
-        make_discriminator("sn", False, n_channels=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="M9"):
-        make_discriminator("sn", True, n_channels=3, device="cpu")
+    """The spectral-norm critics, once refused, build at tiny widths and
+    give finite logits; an unknown kind is refused."""
+    g = torch.Generator().manual_seed(0)
+    img = make_discriminator("sn", False, n_channels=3, ndf=4, device="cpu")
+    logits, _ = img(torch.rand((2, 64, 64, 3), generator=g))
+    assert logits.shape == (2, 4, 4) and bool(torch.isfinite(logits).all())
+    vid = make_discriminator("sn", True, n_channels=3, ndf=4, ksize=4,
+                             device="cpu")
+    logits, _ = vid(torch.rand((2, 16, 64, 64, 3), generator=g))
+    assert logits.shape == (2,) and bool(torch.isfinite(logits).all())
     with pytest.raises(ValueError, match="unknown video"):
         make_discriminator("odd", True, n_channels=3, device="cpu")
 

@@ -125,12 +125,44 @@ TRAINER_SIDE = [
     ("ucf_ode", {"compute_dtype": "bfloat16"}, "M4")]
 
 
+PORTED = {"M4", "M9"}
+FRAME_SIZE = {"mnist28": 28, "dcgan64": 64, "dcgan128": 128}
+
+
+def _builds_and_trains(name, overrides):
+    """``name`` with ``overrides`` at tiny widths: one CPU training step with
+    finite losses, and finite videos of the configured shape."""
+    base = config.get_config(name)
+    cfg = config.get_config(
+        name, ngf=4, ndf=4, batch_size=2, d_iters=1, dim_z_content=4,
+        dim_z_motion=4,
+        video_length=16 if base.video_disc_ksize == 4 else 8, **overrides)
+    tr = build_trainer(cfg, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    s, c, t = FRAME_SIZE[cfg.trunk], cfg.n_channels, cfg.video_length
+    images = torch.rand((1, 2, s, s, c), generator=g) * 2 - 1
+    videos = torch.rand((1, 2, t, s, s, c), generator=g) * 2 - 1
+    metrics = tr.train_step(tr.init_state(), images, videos, generator=g)
+    assert all(np.isfinite(float(v)) for v in metrics.values()), metrics
+    with torch.no_grad():
+        out, _ = generator_for_config(cfg, device="cpu").eval().sample_videos(
+            2, generator=g)
+    assert out.shape == (2, t, s, s, c) and out.dtype == torch.float32
+    assert bool(torch.isfinite(out).all())
+
+
 @pytest.mark.parametrize("name,overrides,item", [
     pytest.param(name, {}, item, id=f"{name}-{item}")
     for name, item in GENERATOR_SIDE] + [
     pytest.param(name, over, item, id=f"{name}-{'-'.join(over)}-{item}")
     for name, over, item in TRAINER_SIDE])
 def test_unported_configs_name_their_roadmap_item(name, overrides, item):
+    """Items still to port raise NotImplementedError naming them; the cases
+    of ported items (M4 bf16, M9 WGAN-GP@128) build at tiny widths on the
+    CPU and take a finite training step instead."""
+    if item in PORTED:
+        _builds_and_trains(name, overrides)
+        return
     if overrides:
         cfg = config.get_config(name, ngf=4, ndf=4, **overrides)
     else:

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 from flax import linen as nn
 
-from ganode_tpu.models.mocogan import DCGANTrunk64, MNISTTrunk28
+from ganode_tpu.models.mocogan import DCGANTrunk64, DCGANTrunk128, MNISTTrunk28
 from ganode_tpu.models.motion import MotionODE
 from ganode_tpu.nn.layers import WarmupMLP
 
@@ -63,7 +63,7 @@ class NoiseRecorder:
                 self._keep("x0", args[0])
             elif isinstance(m, MotionODE):
                 self._keep("traj", out)
-            elif isinstance(m, (MNISTTrunk28, DCGANTrunk64)):
+            elif isinstance(m, (MNISTTrunk28, DCGANTrunk64, DCGANTrunk128)):
                 self._keep("z", args[0])
         return out
 
