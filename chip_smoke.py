@@ -79,12 +79,34 @@ printing one line before the next starts:
 20. trains ``ucf_ode`` at full width with ``compute_dtype="bfloat16"``: K1
     +6 per step, ms/step beside phase 8's float32 and the video
     discriminator's forward and backward alone in both dtypes.
+21. for each of ``mnist_sde``, ``mnist_cde``, ``mnist_ode_rnn`` and
+    ``mnist_moe_ode`` in turn, trains it at full width (mnist28, ngf = ndf =
+    64, B=32, T=16, ``VideoDiscriminator(ksize=2)``, d_iters 2) on uniform
+    random batches, cuDNN TF32 on: 2 warm-up steps, then 3 timed; ms/step,
+    clips/s, ms per phase, peak memory; requires finite losses and K1 and
+    K2 +0 (these motions run no kernel, as in JAX);
+22. and then serves it: ``sample_videos(64)`` through ``GeneratorSession``
+    (finite, of the configured shape, K1 and K2 +0; timed with TF32 off and
+    on, the motion sampler alone), and 2 clips against the same noise
+    decoded on the CPU, < 1e-4;
+23. takes one reduced-width step (ngf = ndf = 8, B = 4, T = 16) of
+    ``mnist_sde`` and of ``mnist_cde`` on the card and on the CPU in
+    float64, as phase 10;
+24. solves the SDE (B=32, dim 16, T=16, dt 2.5e-2: 45 substeps) with euler,
+    milstein and reversible Heun on the card against the CPU in float64
+    from the same ``x0`` and ``dW`` (< 1e-4), and holds the reversible
+    adjoint's gradients (in ``x0`` and the fields' parameters, a cotangent
+    at every output time) against autograd through reversible Heun on the
+    card (< 1e-4 of each tensor's largest value), timing both;
+25. runs ``python -m ganode_tpu_torch.train --config mnist_sde --synthetic
+    --steps 2`` at full width: two finite ``metrics.jsonl`` lines and a
+    checkpoint of step 2.
 
-Float32, except phase 20. Matrix products run in full float32
-(``torch.backends.cuda.matmul.allow_tf32 = False``); the correctness checks
-also turn TF32 off for cuDNN's convolutions, and the serving and training
-times are taken with cuDNN's TF32 on (PyTorch's default), for ``ucf_ode``
-also off.
+Float32, except phase 20; each of phases 21-25 prints its seconds. Matrix
+products run in full float32 (``torch.backends.cuda.matmul.allow_tf32 =
+False``); the correctness checks also turn TF32 off for cuDNN's
+convolutions, and the serving and training times are taken with cuDNN's
+TF32 on (PyTorch's default), for ``ucf_ode`` also off.
 
 The last two lines of standard output are one JSON object with a record per
 kernel and the training run, and ``{"ok": true, "device": {...}}``. Any
@@ -138,6 +160,9 @@ DEVICE_DATA_STEPS = 3
 # run_training steps, and the dopri5 solves timed alone
 WGAN_STEPS = 3
 WGAN_RUNNER_STEPS = 2
+# the SDE, CDE, ODE-RNN and MoE-ODE configs (phase 21): timed full-width
+# steps after two warm-up steps
+VARIANT_STEPS = 3
 # A spectral-norm critic's u is a unit vector: after a step, its norm within
 # this of 1 (float32 power iteration).
 TOL_U_NORM = 1e-5
@@ -1147,6 +1172,222 @@ def bf16_phase(dev, card, f32_ms, events_ms) -> dict:
             "video_disc_fwd_bwd_ms": d_vid_ms}
 
 
+VARIANTS = ("mnist_sde", "mnist_cde", "mnist_ode_rnn", "mnist_moe_ode")
+
+
+def variant_phases(dev, card, events_ms) -> dict:
+    """Phases 21-25 (module docstring): the SDE, CDE, ODE-RNN and MoE-ODE
+    configs, which run no kernel, as in JAX; returns the record's entry."""
+    import torch
+
+    from ganode_tpu_torch.compat import GeneratorSession
+    from ganode_tpu_torch.models import MotionSDE, generator_for_config
+    from ganode_tpu_torch.ode import brownian_increments
+    from ganode_tpu_torch.ops import fused_gru, fused_rk4
+    from ganode_tpu_torch.train import build_trainer
+    from ganode_tpu_torch.utils import layout
+    from ganode_tpu_torch.utils.config import get_config
+
+    out = {}
+    for name in VARIANTS:
+        cfg = get_config(name)
+        t0 = time.perf_counter()
+        phase(f"train {name} at full width (mnist28, ngf=ndf={cfg.ngf}, "
+              f"B={cfg.batch_size}, T={cfg.video_length}, d_iters "
+              f"{cfg.d_iters}): 2 warm-up + {VARIANT_STEPS} timed steps, "
+              "cuDNN TF32 on")
+        torch.backends.cudnn.allow_tf32 = True
+        tr = build_trainer(cfg, device=dev)
+        state = tr.init_state()
+        gt = torch.Generator(dev).manual_seed(0)
+        images, videos = random_batches(cfg, dev, 2)
+        for _ in range(2):
+            tr.train_step(state, images, videos, generator=gt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(VARIANT_STEPS):
+            metrics = tr.train_step(state, images, videos, generator=gt)
+        b.record()
+        torch.cuda.synchronize()
+        k1, k2 = fused_rk4.launches, fused_gru.launches
+        ms = a.elapsed_time(b) / VARIANT_STEPS
+        mem = torch.cuda.max_memory_allocated()
+        losses = {k: v.item() for k, v in metrics.items()}
+        require(k1 == 0 and k2 == 0,
+                f"{name} launched K1 {k1} and K2 {k2} times: a path took a "
+                "kernel that JAX does not take")
+        require(all(map(math.isfinite, losses.values())),
+                f"{name}: non-finite losses {losses}")
+        phases = phase_ms(tr, state, images, videos, gt, 1)
+        say(f"{name} train_step: {ms:.3f} ms/step, "
+            f"{cfg.batch_size * 1e3 / ms:.1f} clips/s; phases per step: "
+            f"D_img {phases['d_img']:.3f} ms, D_vid {phases['d_vid']:.3f} ms, "
+            f"G {phases['g']:.3f} ms; peak memory {mem / 2 ** 30:.2f} GiB; "
+            f"K1 +{k1}, K2 +{k2} in {VARIANT_STEPS} steps; losses {losses}; "
+            f"{time.perf_counter() - t0:.1f} s; {card}")
+        rec = {"ms_per_step": ms, "clips_per_s": cfg.batch_size * 1e3 / ms,
+               "phase_ms": phases, "max_memory_bytes": mem, "losses": losses,
+               "k1_launches_per_step": k1 / VARIANT_STEPS,
+               "k2_launches_per_step": k2 / VARIANT_STEPS}
+        del tr, state, images, videos
+
+        t0 = time.perf_counter()
+        phase(f"serve {name} at full width: sample_videos(64), and 2 clips "
+              "against the CPU")
+        torch.backends.cudnn.allow_tf32 = False
+        sess = GeneratorSession(generator_for_config(cfg, device=dev), seed=0,
+                                device=dev)
+        reset_counts()
+        v = layout.video_from_torch(sess.sample_videos(64)[0])
+        torch.cuda.synchronize()
+        k1, k2 = fused_rk4.launches, fused_gru.launches
+        want = (64, cfg.video_length, 28, 28, cfg.n_channels)
+        require(tuple(v.shape) == want, f"{name} videos {tuple(v.shape)}")
+        require(bool(torch.isfinite(v).all()) and v.abs().max().item() <= 1.0,
+                f"{name}: videos not finite or outside [-1, 1]")
+        require(k1 == 0 and k2 == 0, f"{name} served through K1 {k1} / K2 {k2}")
+        gen, gen_cpu = sess.gen, generator_for_config(cfg, device="cpu").eval()
+        noise = gen.draw_noise(2, "videos", torch.Generator().manual_seed(5))
+        with torch.no_grad():
+            v_card, _ = gen.sample_videos(
+                2, **{k: x.to(dev) for k, x in noise.items()})
+            v_cpu, _ = gen_cpu.sample_videos(2, **noise)
+        err = (v_card.cpu() - v_cpu).abs().max().item()
+        require(err < TOL_VIDEO, f"{name} card vs CPU videos: {err}")
+        serve = {}
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = tf32
+            serve[f"tf32={'on' if tf32 else 'off'}"] = events_ms(
+                lambda: sess.sample_videos(64), 5)
+        with torch.no_grad():
+            motion_ms = events_ms(
+                lambda: gen.motion(64, cfg.video_length,
+                                   generator=sess.generator), 5)
+        say(f"{name} sample_videos(64): {serve['tf32=off']:.3f} ms TF32 off, "
+            f"{serve['tf32=on']:.3f} ms on ({64e3 / serve['tf32=on']:.0f} "
+            f"clips/s); motion alone {motion_ms:.3f} ms; card vs CPU (2 "
+            f"clips, TF32 off) max|diff| {err:.3e} (tol {TOL_VIDEO}); K1 +{k1}, "
+            f"K2 +{k2}; {time.perf_counter() - t0:.1f} s; {card}")
+        rec["serving_ms"] = serve
+        rec["serving_motion_ms"] = motion_ms
+        rec["serving_card_vs_cpu_max_abs"] = err
+        out[name] = rec
+        del sess, gen, gen_cpu
+
+    for name in ("mnist_sde", "mnist_cde"):
+        t0 = time.perf_counter()
+        phase(f"one {name} train_step at reduced width (ngf=ndf=8, B=4, "
+              "T=16): card vs CPU float64")
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        try:
+            err_loss, err_nets, cpu_loss, cpu_nets, n_tensors = \
+                card_vs_cpu_step(dev, get_config(name, ngf=8, ndf=8,
+                                                 batch_size=4))
+        finally:
+            torch.backends.cudnn.deterministic = False
+        say(f"{name} train_step vs the CPU's float64 step: card (float32, "
+            f"TF32 off, cuDNN deterministic) losses max|diff| {err_loss:.3e}, "
+            f"parameters, statistics and Adam moments max|diff| "
+            f"{err_nets:.3e} over {n_tensors} tensors (tol {TOL_STEP}); the "
+            f"CPU's float32 step {cpu_loss:.3e} and {cpu_nets:.3e}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        require(err_loss < TOL_STEP and err_nets < TOL_STEP,
+                f"{name} card vs CPU: losses {err_loss}, nets {err_nets}")
+        out[name]["card_vs_cpu_max_abs"] = {
+            "losses": err_loss, "nets": err_nets,
+            "cpu_float32_losses": cpu_loss, "cpu_float32_nets": cpu_nets}
+
+    t0 = time.perf_counter()
+    b, d, t, dt = 32, 16, 16, 2.5e-2
+    phase(f"SDE solvers on the card (B={b}, dim {d}, T={t}, dt {dt}) against "
+          "the CPU in float64 from the same x0 and dW; the reversible "
+          "adjoint's gradients against autograd")
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(11)
+    x0 = torch.randn((b, d), generator=g)
+    ts = MotionSDE.times(t)
+    dW = brownian_increments(ts, dt, (b, d), g)
+    require(dW.shape[0] == 45, f"{dW.shape[0]} substeps, not 45")
+    w = torch.randn((b, t, d), generator=g)
+    base = MotionSDE(d)
+    base.init_parameters(torch.Generator().manual_seed(0))
+    solver = {}
+    for method in ("euler", "milstein", "reversible_heun"):
+        def run(device, dtype, method=method):
+            m = copy.deepcopy(base).to(device, dtype)
+            m.method = method
+            with torch.no_grad():
+                return m(b, t, x0=x0.to(device, dtype),
+                         dW=dW.to(device, dtype)).cpu().double()
+        got, want = run(dev, torch.float32), run("cpu", torch.float64)
+        err = (got - want).abs().max().item()
+        require(bool(torch.isfinite(got).all()) and err < TOL_STEP,
+                f"sdeint {method} card vs CPU float64: {err}")
+        solver[method] = {"max_abs_vs_float64": err}
+
+    m = copy.deepcopy(base).to(dev)
+    x, dW_d, w_d = x0.to(dev), dW.to(dev), w.to(dev)
+    params = list(m.drift_fn.parameters()) + list(m.diffusion_fn.parameters())
+
+    def grads(method):
+        m.method = method
+        xi = x.clone().requires_grad_()
+        zs = m(b, t, x0=xi, dW=dW_d)
+        return torch.autograd.grad((zs * w_d).sum(), [xi] + params)
+
+    adj, ref = grads("reversible_heun_adjoint"), grads("reversible_heun")
+    grad_err = max(((a_ - r).abs().max() / r.abs().max()).item()
+                   for a_, r in zip(adj, ref))
+    require(grad_err < TOL_STEP, f"reversible adjoint vs autograd: {grad_err}")
+    adj_ms = events_ms(lambda: grads("reversible_heun_adjoint"), 3)
+    ref_ms = events_ms(lambda: grads("reversible_heun"), 3)
+    say(f"SDE card (float32) vs CPU (float64), max|diff| over 45 substeps: "
+        + ", ".join(f"{k} {v['max_abs_vs_float64']:.3e}"
+                    for k, v in solver.items())
+        + f" (tol {TOL_STEP}); reversible adjoint vs autograd through "
+        f"reversible_heun on the card, gradients in x0 and the 8 field "
+        f"tensors worst max|diff|/max|ref| {grad_err:.3e} (tol {TOL_STEP}); "
+        f"forward + backward {adj_ms:.3f} ms (adjoint) against "
+        f"{ref_ms:.3f} ms (autograd); {time.perf_counter() - t0:.1f} s; "
+        f"{card}")
+    solver["adjoint_vs_autograd_grad_rel"] = grad_err
+    solver["adjoint_ms"], solver["autograd_ms"] = adj_ms, ref_ms
+    out["sde_solvers"] = solver
+
+    t0 = time.perf_counter()
+    phase("the training CLI: python -m ganode_tpu_torch.train --config "
+          "mnist_sde --synthetic --steps 2 (full width)")
+    tmp = tempfile.mkdtemp(prefix="ganode_sde_cli_")
+    try:
+        wd = os.path.join(tmp, "run")
+        run_child([sys.executable, "-m", "ganode_tpu_torch.train", "--config",
+                   "mnist_sde", "--synthetic", "--steps", "2", "--workdir", wd,
+                   "--set", "log_every=1"], "the mnist_sde training CLI")
+        lines = jsonl(os.path.join(wd, "metrics.jsonl"))
+        losses = [{k: l[k] for k in ("dis_img_loss", "dis_vid_loss",
+                                     "gen_loss")} for l in lines]
+        require([l["step"] for l in lines] == [0, 1]
+                and all(math.isfinite(v) for l in losses for v in l.values()),
+                f"mnist_sde metrics.jsonl: {lines}")
+        ckpts = sorted(int(c) for c in os.listdir(os.path.join(wd, "checkpoints")))
+        ckpt = os.path.join(wd, "checkpoints", str(ckpts[-1]), "state.pt")
+        require(ckpts and ckpts[-1] == 2 and os.path.getsize(ckpt) > 0,
+                f"mnist_sde checkpoints {ckpts}")
+        seconds = time.perf_counter() - t0
+        say(f"mnist_sde CLI: 2 steps in {seconds:.1f} s of process; losses "
+            f"{losses}; checkpoints {ckpts} ({os.path.getsize(ckpt)} bytes); "
+            f"{card}")
+        out["mnist_sde_cli"] = {"seconds": seconds, "losses": losses,
+                                "checkpoint_bytes": os.path.getsize(ckpt)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     faulthandler.enable()
     phase("watchdog armed: %d s per phase" % WATCHDOG_S)
@@ -1453,6 +1694,7 @@ def main() -> int:
     training["ucf_wgan_gp_128"] = wgan
     training["ucf_ode_bf16"] = bf16_phase(
         dev, card, training["ucf_ode"]["tf32_on"]["ms_per_step"], events_ms)
+    training["motion_variants"] = variant_phases(dev, card, events_ms)
 
     worst = lambda kernel: max(e for (k, _), e in errs.items() if k == kernel)
     record = {"kernels": [
@@ -1488,6 +1730,12 @@ def main() -> int:
          "backward_ms": training["mnist_gru"]["k2_backward_ms"]},
     ], "max_abs_err_by_variant": {f"{k} {v}": e for (k, v), e in errs.items()},
         "serving_ms": serving, "training": training, "card": smi}
+    # the SDE, CDE, ODE-RNN and MoE-ODE paths run neither kernel, as in JAX
+    for kernel, key in zip(record["kernels"], ("k1", "k2")):
+        for name, rec in training["motion_variants"].items():
+            if name in VARIANTS:
+                kernel["launches_by_path"][f"train_step {name}, per step"] = \
+                    rec[f"{key}_launches_per_step"]
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,9 @@ the other direction, in ``ganode_tpu/compat_torch.py``:
   convolves with the flipped kernel, flax's runs an un-flipped correlation
 * BatchNorm ``scale``/``bias`` and batch_stats ``mean``/``var`` <->
   ``weight``/``bias``/``running_mean``/``running_var``
-* GRU ``wi``/``wh``/``bi``/``bh`` keep their names and layout.
+* GRU ``wi``/``wh``/``bi``/``bh`` and the mixture-of-experts field's stacked
+  ``expert_w1``/``expert_b1``/``expert_w2``/``expert_b2`` keep their names
+  and layout; its ``gate`` is a Dense.
 * ``SNConv`` and ``SNDense`` kernels follow the conv and dense rules; their
   ``spectral`` collection's ``u`` <-> the buffer ``u``.
 
@@ -30,7 +32,11 @@ import numpy as np
 import torch
 
 _PARAM_TO_TORCH = {"scale": "weight", "bias": "bias", "kernel": "weight",
-                   "wi": "wi", "wh": "wh", "bi": "bi", "bh": "bh"}
+                   "wi": "wi", "wh": "wh", "bi": "bi", "bh": "bh",
+                   "expert_w1": "expert_w1", "expert_b1": "expert_b1",
+                   "expert_w2": "expert_w2", "expert_b2": "expert_b2"}
+# modules whose 2-D kernel is a Dense's
+_DENSE = ("Dense", "SNDense", "gate")
 _STAT_TO_TORCH = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -46,7 +52,7 @@ def _kernel_to_torch(module: str, k: np.ndarray) -> np.ndarray:
         return k[::-1, ::-1].transpose(2, 3, 0, 1)
     if _is_conv(module, k.ndim):  # (*spatial, Ci, Co) -> (Co, Ci, *spatial)
         return k.transpose(k.ndim - 1, k.ndim - 2, *range(k.ndim - 2))
-    if module.startswith(("Dense", "SNDense")) and k.ndim == 2:
+    if module.startswith(_DENSE) and k.ndim == 2:
         return k.T
     raise ValueError(f"no layout rule for a {k.ndim}-D kernel of module "
                      f"{module!r}")
@@ -57,7 +63,7 @@ def _kernel_from_torch(module: str, w: np.ndarray) -> np.ndarray:
         return w.transpose(2, 3, 0, 1)[::-1, ::-1]
     if _is_conv(module, w.ndim):  # (Co, Ci, *spatial) -> (*spatial, Ci, Co)
         return w.transpose(*range(2, w.ndim), 1, 0)
-    if module.startswith(("Dense", "SNDense")) and w.ndim == 2:
+    if module.startswith(_DENSE) and w.ndim == 2:
         return w.T
     raise ValueError(f"no layout rule for the {w.ndim}-D weight of module "
                      f"{module!r}")

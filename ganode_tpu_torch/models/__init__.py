@@ -22,7 +22,16 @@ from .mocogan import (
     VideoDiscriminator,
     VideoGenerator,
 )
-from .motion import MOTION_SAMPLERS, MotionGRU, MotionODE, make_motion_sampler
+from .motion import (
+    MOTION_SAMPLERS,
+    MotionCDE,
+    MotionGRU,
+    MotionMoEODE,
+    MotionODE,
+    MotionODERNN,
+    MotionSDE,
+    make_motion_sampler,
+)
 
 
 def make_generator(
@@ -40,8 +49,8 @@ def make_generator(
     dtype: torch.dtype | None = None,
     **motion_kwargs,
 ) -> VideoGenerator:
-    """Build the generator for a README variant (``ode`` or ``gru`` so far),
-    with weights drawn from ``seed`` by the JAX package's initialisers and
+    """Build the generator for a README variant (``gru``, ``ode``, ``sde``,
+    ``cde``, ``ode_rnn`` or ``moe_ode``), with weights drawn from ``seed`` by the JAX package's initialisers and
     its trunk computing in ``dtype`` (None: its parameters' own, float32).
 
     The weights are drawn on the CPU from one ``torch.Generator`` and then
@@ -122,12 +131,20 @@ def discriminators_for_config(config, *, device="cuda"):
 
 def generator_for_config(config, *, device="cuda") -> VideoGenerator:
     """The generator ``ganode_tpu.train.runner.build_trainer`` builds for
-    ``config``, initialised from ``config.seed``: the motion method passed
-    through as JAX passes it (``dopri5`` for ``ucf_wgan_gp_128``, at the
-    sampler's default tolerances), the trunk in the compute dtype."""
+    ``config``, initialised from ``config.seed``, its motion options passed
+    through as JAX passes them (``ganode_tpu/train/runner.py:41-53``): the
+    method for every variant but ``gru`` (``dopri5`` for
+    ``ucf_wgan_gp_128``, at the sampler's default tolerances), ``sde_dt``
+    for ``sde``, the expert count and ``top_k`` for ``moe_ode``; the trunk
+    in the compute dtype."""
     motion_kwargs = {}
     if config.motion_method is not None and config.variant != "gru":
         motion_kwargs["method"] = config.motion_method
+    if config.variant == "sde" and config.sde_dt is not None:
+        motion_kwargs["dt"] = config.sde_dt
+    if config.variant == "moe_ode":
+        motion_kwargs["n_experts"] = config.moe_experts
+        motion_kwargs["top_k"] = config.moe_top_k
     return make_generator(
         config.variant, n_channels=config.n_channels, trunk=config.trunk,
         dim_z_content=config.dim_z_content,
@@ -146,8 +163,12 @@ __all__ = [
     "ImageDiscriminator",
     "MNISTTrunk28",
     "MOTION_SAMPLERS",
+    "MotionCDE",
     "MotionGRU",
+    "MotionMoEODE",
     "MotionODE",
+    "MotionODERNN",
+    "MotionSDE",
     "PatchImageDiscriminator",
     "PatchVideoDiscriminator",
     "SNImageDiscriminator",

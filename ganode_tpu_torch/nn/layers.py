@@ -11,7 +11,7 @@ explicit ``torch.Generator`` with the JAX package's initialisers.
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -163,14 +163,18 @@ def init_dense(layer: nn.Linear, generator: torch.Generator):
 
 
 class MLP(nn.Module):
-    """Dense stack with tanh between layers: ``MLP(d, (h, d))`` is the ODE
-    vector field Linear->Tanh->Linear. Layers are named ``Dense_0, Dense_1,
-    ...`` as in flax. (The JAX MLP's other activations and ``activate_final``
-    come with the samplers that use them, ROADMAP M10.)"""
+    """Dense stack with ``activation`` between layers and, with
+    ``activate_final``, after the last (``ganode_tpu/nn/layers.py:72-89``):
+    ``MLP(d, (h, d))`` is the ODE vector field Linear->Tanh->Linear. Layers
+    are named ``Dense_0, Dense_1, ...`` as in flax."""
 
-    def __init__(self, in_features: int, features: Sequence[int]):
+    def __init__(self, in_features: int, features: Sequence[int],
+                 activation: Callable[[torch.Tensor], torch.Tensor] = torch.tanh,
+                 activate_final: bool = False):
         super().__init__()
         self.n_layers = len(features)
+        self.activation = activation
+        self.activate_final = activate_final
         for i, f in enumerate(features):
             self.add_module(f"Dense_{i}", nn.Linear(in_features, f))
             in_features = f
@@ -182,8 +186,8 @@ class MLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n_layers):
             x = getattr(self, f"Dense_{i}")(x)
-            if i < self.n_layers - 1:
-                x = torch.tanh(x)
+            if i < self.n_layers - 1 or self.activate_final:
+                x = self.activation(x)
         return x
 
 

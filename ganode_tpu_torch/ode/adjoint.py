@@ -20,7 +20,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import tableaus as tb
-from .solve import host_scalar, odeint, rk_step_tree
+from .solve import host_scalar, host_times, odeint, rk_step_tree
 from .tree import tree_zeros_like
 
 
@@ -56,11 +56,10 @@ def odeint_backsolve(func, y0: torch.Tensor, ts, params, method: str = "rk4",
 class _Backsolve(torch.autograd.Function):
     @staticmethod
     def forward(ctx, func, ts, method, spi, y0, *params):
-        ts = torch.as_tensor(ts, device=y0.device)
+        ts = host_times(ts, y0.dtype).astype(host_scalar(y0.dtype))
         ys = odeint(func, y0, ts, params, method=method,
                     steps_per_interval=spi)
-        ctx.func, ctx.method, ctx.spi = func, method, spi
-        ctx.ts = ts.detach().cpu().numpy().astype(host_scalar(y0.dtype))
+        ctx.func, ctx.method, ctx.spi, ctx.ts = func, method, spi, ts
         ctx.save_for_backward(ys, *params)
         return ys
 

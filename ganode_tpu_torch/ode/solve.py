@@ -12,8 +12,8 @@ Contract, as torchdiffeq and the JAX package have it:
 The loop is plain Python over eager PyTorch ops. The rk4 motion solve of the
 generator runs in one CUDA kernel instead (``ganode_tpu_torch.ops.fused_rk4``);
 this solver serves the other fixed-grid methods. Adaptive stepping is
-``ode.adaptive``, the continuous adjoint ``ode.adjoint``; SDEs and CDEs wait
-for ROADMAP M10.
+``ode.adaptive``, the continuous adjoint ``ode.adjoint``, SDEs ``ode.sde``
+and CDEs ``ode.cde``.
 """
 from __future__ import annotations
 
@@ -43,24 +43,6 @@ class SolveStats:
     # the port's own: times the solve waited for the device to decide on the
     # host (adaptive only: one per attempt, two for the first step's size)
     syncs: int = 0
-
-
-def rk_step(tableau: tb.ButcherTableau, f, t0, dt, y0):
-    """One explicit RK step of ``f(t, y)``. Returns ``(y1, ks)``.
-
-    Stage sums run in the JAX package's order: ``y0 + sum_j (dt * a_ij) k_j``,
-    each coefficient cast to the state's dtype.
-    """
-    ks = []
-    for i in range(tableau.stages):
-        yi = y0
-        for aij, kj in zip(tableau.a[i], ks):
-            yi = yi + (dt * aij).to(y0.dtype) * kj
-        ks.append(f(t0 + tableau.c[i] * dt, yi))
-    y1 = y0
-    for bi, ki in zip(tableau.b, ks):
-        y1 = y1 + (dt * bi).to(y0.dtype) * ki
-    return y1, ks
 
 
 def host_scalar(dtype: torch.dtype):
@@ -103,31 +85,44 @@ def _with_args(func, args):
         (lambda t, y: func(t, y, args))
 
 
-def odeint(func: VectorField, y0: torch.Tensor, ts: torch.Tensor, args=None,
-           *, method: str = "rk4", steps_per_interval: int = 1,
+def host_times(ts, dtype: torch.dtype) -> np.ndarray:
+    """``ts`` as a numpy array on the host, in its own floating dtype (a
+    list, or integers, take the state's ``host_scalar``), so that every time
+    and step derived from it rounds as the JAX solver's scalars do."""
+    if isinstance(ts, torch.Tensor):
+        ts = ts.detach().cpu().numpy()
+    ts = np.asarray(ts)
+    return ts if ts.dtype.kind == "f" else ts.astype(host_scalar(dtype))
+
+
+def odeint(func: VectorField, y0: torch.Tensor, ts, args=None, *,
+           method: str = "rk4", steps_per_interval: int = 1,
            return_stats: bool = False):
     """Integrate ``dy/dt = func(t, y, args)`` over the grid ``ts``.
 
-    Returns a tensor of shape ``(len(ts),) + y0.shape`` with ``ys[0] == y0``,
-    and its ``SolveStats`` with ``return_stats``.
+    The times are host scalars (``ts`` read once on the host; pass it there
+    to keep the solve from waiting for the device), so ``func`` gets ``t``
+    as a numpy scalar. Returns a tensor of shape ``(len(ts),) + y0.shape``
+    with ``ys[0] == y0``, and its ``SolveStats`` with ``return_stats``.
     """
     tableau = _fixed_grid(method)
     spi = int(steps_per_interval)
     if spi < 1:
         raise ValueError("steps_per_interval must be >= 1")
     f = _with_args(func, args)
-    ts = torch.as_tensor(ts, device=y0.device)
-    ys = [y0]
-    y = y0
-    for i in range(ts.shape[0] - 1):
+    ft = lambda t, y: (f(t, y[0]),)  # noqa: E731
+    ts = host_times(ts, y0.dtype)
+    s = ts.dtype.type
+    ys, y = [y0], (y0,)
+    for i in range(len(ts) - 1):
         t0 = ts[i]
-        h = (ts[i + 1] - t0) / spi
+        h = (ts[i + 1] - t0) / s(spi)
         for j in range(spi):
-            y, _ = rk_step(tableau, f, t0 + j * h if j else t0, h, y)
-        ys.append(y)
+            y, _ = rk_step_tree(tableau, ft, t0 + s(j) * h if j else t0, h, y)
+        ys.append(y[0])
     ys = torch.stack(ys)
     if return_stats:
-        n = ts.shape[0] - 1
+        n = len(ts) - 1
         return ys, SolveStats(nfe=tableau.stages * n * spi, n_steps=n * spi)
     return ys
 
@@ -136,18 +131,19 @@ def odeint_final(func: VectorField, y0: torch.Tensor, t0, t1, args=None, *,
                  method: str = "rk4", num_steps: int = 1) -> torch.Tensor:
     """Integrate from ``t0`` to ``t1`` in ``num_steps`` equal steps and
     return only the final state (``ganode_tpu/ode/solve.py:153``: the
-    primitive behind ODE-RNN and the continuous-depth block)."""
+    primitive behind ODE-RNN and the continuous-depth block). The times are
+    host scalars, float32 unless ``t0`` is float64, as JAX types them."""
     tableau = _fixed_grid(method)
     f = _with_args(func, args)
-    t0 = torch.as_tensor(t0, device=y0.device)
-    if not t0.is_floating_point():
-        t0 = t0.float()
-    t1 = torch.as_tensor(t1, dtype=t0.dtype, device=y0.device)
-    h = (t1 - t0) / num_steps
-    y = y0
+    ft = lambda t, y: (f(t, y[0]),)  # noqa: E731
+    s = (np.float64 if getattr(t0, "dtype", None) in (np.float64, torch.float64)
+         else np.float32)
+    t0, t1 = s(float(t0)), s(float(t1))
+    h = (t1 - t0) / s(num_steps)
+    y = (y0,)
     for j in range(num_steps):
-        y, _ = rk_step(tableau, f, t0 + j * h, h, y)
-    return y
+        y, _ = rk_step_tree(tableau, ft, t0 + s(j) * h, h, y)
+    return y[0]
 
 
 def nfe_fixed_grid(method: str, n_outputs: int,

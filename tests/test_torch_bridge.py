@@ -45,8 +45,9 @@ def _assert_trees_equal(a, b, path=""):
             np.testing.assert_array_equal(a[k], b[k], err_msg=f"{path}/{k}")
 
 
-@pytest.mark.parametrize("variant,trunk,n_channels", [("ode", "dcgan64", 3),
-                                                      ("gru", "mnist28", 1)])
+@pytest.mark.parametrize("variant,trunk,n_channels", [
+    ("ode", "dcgan64", 3), ("gru", "mnist28", 1), ("sde", "mnist28", 1),
+    ("cde", "mnist28", 1), ("ode_rnn", "mnist28", 1), ("moe_ode", "mnist28", 1)])
 def test_full_generator_tree_round_trips(variant, trunk, n_channels):
     variables = _jax_generator_variables(variant, trunk, n_channels)
     gen = make_generator(variant, n_channels=n_channels, trunk=trunk, ngf=8,
@@ -54,6 +55,81 @@ def test_full_generator_tree_round_trips(variant, trunk, n_channels):
     gen.load_state_dict(bridge.jax_to_torch(variables), strict=True)
     back = bridge.torch_to_jax(gen.state_dict())
     _assert_trees_equal(variables, back)
+
+
+MOTION_CHILDREN = {
+    "sde": ["WarmupMLP_0", "diffusion_fn", "drift_fn"],
+    "cde": ["cde_fn", "init_net"], "ode_rnn": ["gru", "ode_fn"],
+    "moe_ode": ["WarmupMLP_0", "moe_fn"]}
+
+
+@pytest.mark.parametrize("variant", sorted(MOTION_CHILDREN))
+def test_motion_variant_trees_and_moe_layout(variant):
+    """Each new sampler's children carry flax's names; the MoE field's
+    stacked expert leaves keep their layout, its gate is a Dense."""
+    variables = _jax_generator_variables(variant, "mnist28", 1)
+    motion = variables["params"]["motion"]
+    assert sorted(motion) == MOTION_CHILDREN[variant]
+    sd = bridge.jax_to_torch(variables)
+    if variant == "moe_ode":
+        moe = motion["moe_fn"]
+        assert moe["expert_w1"].shape == (4, 16, 16)
+        for leaf in ("expert_w1", "expert_b1", "expert_w2", "expert_b2"):
+            np.testing.assert_array_equal(
+                sd[f"motion.moe_fn.{leaf}"].numpy(), moe[leaf])
+        np.testing.assert_array_equal(sd["motion.moe_fn.gate.weight"].numpy(),
+                                      moe["gate"]["kernel"].T)
+
+
+def _random_moments(tree, rng):
+    return jax.tree_util.tree_map(
+        lambda a: rng.standard_normal(np.shape(a)).astype(np.float32), tree)
+
+
+@pytest.mark.parametrize("variant", ["ode_rnn", "moe_ode"])
+def test_gan_state_round_trips_with_adam_moments(variant):
+    """A whole JAX GANState of the ODE-RNN and MoE variants (tiny widths),
+    its Adam moments replaced by random numbers, crosses into the port's
+    state and back exactly (the SDE's and CDE's, after a step, in
+    ``test_torch_variant_step.py``)."""
+    from ganode_tpu.models import PatchImageDiscriminator as JaxPatchImage
+    from ganode_tpu.models import VideoDiscriminator as JaxVideoD
+    from ganode_tpu.train import GANTrainer as JaxTrainer
+    from ganode_tpu_torch.models import (PatchImageDiscriminator,
+                                         VideoDiscriminator)
+    from ganode_tpu_torch.train import GANTrainer
+
+    kw = dict(n_channels=1, trunk="mnist28", video_length=6, ngf=4,
+              dim_z_content=4, dim_z_motion=4)
+    tr = JaxTrainer(gen=jax_make_generator(variant, **kw),
+                    dis_img=JaxPatchImage(ndf=4), dis_vid=JaxVideoD(ksize=2,
+                                                                   ndf=4),
+                    batch_size=2)
+    with jax.enable_x64(False):
+        state = jax.jit(tr.init_state)(jax.random.PRNGKey(0))
+    rng = np.random.default_rng(0)
+    nets = {}
+    for name in bridge.NETS:
+        net = getattr(state, name)
+        adam = bridge._adam_state(net.opt_state)
+        mu, nu = (_random_moments(m, rng) for m in (adam.mu, adam.nu))
+        opt = type(adam)(count=np.int32(3), mu=mu, nu=nu)
+        nets[name] = net.replace(opt_state=(opt,), params=_np_tree(net.params))
+    state = state.replace(**nets)
+    port = GANTrainer(gen=make_generator(variant, device="cpu", **kw),
+                      dis_img=PatchImageDiscriminator(n_channels=1, ndf=4),
+                      dis_vid=VideoDiscriminator(n_channels=1, ndf=4, ksize=2),
+                      batch_size=2)
+    pstate = port.init_state()
+    bridge.gan_state_to_torch(state, pstate)
+    back = bridge.torch_gan_state_to_jax(pstate)
+    for name in bridge.NETS:
+        adam = bridge._adam_state(getattr(state, name).opt_state)
+        _assert_trees_equal(_np_tree(getattr(state, name).params),
+                            back[name]["params"], name)
+        _assert_trees_equal(dict(adam.mu), back[name]["opt_state"]["mu"], name)
+        _assert_trees_equal(dict(adam.nu), back[name]["opt_state"]["nu"], name)
+        assert int(back[name]["opt_state"]["count"]) == 3
 
 
 def test_full_width_tree_shapes():

@@ -18,7 +18,9 @@ abs on losses and parameters after a whole training step, card against CPU
 (every convolution sums in another order on each device). A resumed run must
 equal an uninterrupted one bit for bit, under deterministic algorithms; for
 cuBLAS those need ``CUBLAS_WORKSPACE_CONFIG``, set here before cuBLAS starts.
-The spectral-norm critics and the gradient penalty (no kernel of their own:
+The SDE, CDE, ODE-RNN and MoE-ODE samplers (no kernel, as in JAX) are held,
+float32 on the card against float64 on the CPU, at 1e-4. The spectral-norm
+critics and the gradient penalty (no kernel of their own:
 cuDNN's convolutions and their double backward) are held, float32 on the
 card with TF32 off and cuDNN deterministic, against float64 on the CPU at
 1e-4 of each tensor's largest value.
@@ -370,3 +372,81 @@ def test_a_gradient_penalty_on_the_card_matches_the_cpu_in_float64(card_f32,
     for got, want in zip(out["card"], out["cpu"]):
         err = (got.double().cpu() - want).abs().max() / want.abs().max()
         assert err < 1e-4, err
+
+
+# ---------------------------------------------------------------------------
+# The SDE, CDE, ODE-RNN and MoE-ODE motions run no kernel (as in JAX): their
+# samplers on the card against the CPU in float64, the reversible adjoint
+# against autograd, and their training steps launching neither kernel.
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("kind,options", [
+    ("sde", {}), ("sde", {"method": "milstein"}),
+    ("sde", {"method": "reversible_heun"}),
+    ("sde", {"method": "reversible_heun_adjoint"}), ("cde", {}),
+    ("ode_rnn", {}), ("moe_ode", {}), ("moe_ode", {"top_k": 2}),
+    ("moe_ode", {"adjoint": "backsolve"})])
+def test_a_motion_sampler_on_the_card_matches_the_cpu(cuda, kind, options):
+    """The full-width sampler (B=32, dim 16, T=16) on the card in float32
+    against the CPU in float64 from the same weights and noise: the
+    trajectory within 1e-4 abs, the gradients of ``sum(traj * w)`` in every
+    parameter within 1e-4 of each tensor's largest value."""
+    from ganode_tpu_torch.models import make_motion_sampler
+
+    base = make_motion_sampler(kind, 16, **options)
+    base.init_parameters(torch.Generator().manual_seed(0))
+    noise = base.draw_noise(32, 16, torch.Generator().manual_seed(1))
+    w = torch.randn((32, 16, 16), generator=torch.Generator().manual_seed(2))
+    runs = []
+    for device, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+        m = copy.deepcopy(base).to(device, dtype)
+        zs = m(32, 16, **{k: v.to(device, dtype) for k, v in noise.items()})
+        grads = torch.autograd.grad((zs * w.to(device, dtype)).sum(),
+                                    list(m.parameters()))
+        runs.append((zs.detach().cpu().double(),
+                     [g.cpu().double() for g in grads]))
+    (z, g), (z_ref, g_ref) = runs
+    assert bool(torch.isfinite(z).all())
+    torch.testing.assert_close(z, z_ref, rtol=0, atol=1e-4)
+    for a, b in zip(g, g_ref):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+def test_the_reversible_adjoint_on_the_card_matches_autograd(cuda):
+    """``sdeint_reversible_adjoint``'s gradients (in ``y0`` and the fields'
+    parameters, a cotangent at every output time) against autograd through
+    ``sdeint(method="reversible_heun")``, both on the card in float32,
+    within 1e-4 of each tensor's largest value."""
+    from ganode_tpu_torch.models import MotionSDE
+
+    m = MotionSDE(16).to(cuda)
+    m.init_parameters(torch.Generator(cuda).manual_seed(0))
+    noise = m.draw_noise(32, 16, torch.Generator(cuda).manual_seed(1))
+    w = torch.randn((32, 16, 16), device=cuda)
+    out = []
+    for method in ("reversible_heun_adjoint", "reversible_heun"):
+        m.method = method
+        x0 = noise["x0"].clone().requires_grad_()
+        zs = m(32, 16, x0=x0, dW=noise["dW"])
+        out.append((zs.detach(), torch.autograd.grad(
+            (zs * w).sum(), [x0, *m.drift_fn.parameters(),
+                             *m.diffusion_fn.parameters()])))
+    (za, ga), (zr, gr) = out
+    torch.testing.assert_close(za, zr, rtol=0, atol=1e-6)
+    for a, b in zip(ga, gr):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+@pytest.mark.parametrize("name", ["mnist_sde", "mnist_cde", "mnist_ode_rnn",
+                                  "mnist_moe_ode"])
+def test_the_new_motions_launch_no_kernel(cuda, name):
+    cfg = get_config(name, ngf=8, ndf=8, batch_size=4)
+    tr = build_trainer(cfg, device=cuda)
+    g = torch.Generator(cuda).manual_seed(0)
+    images = torch.rand((2, 4, 28, 28, 1), generator=g, device=cuda) * 2 - 1
+    videos = torch.rand((2, 4, 16, 28, 28, 1), generator=g, device=cuda) * 2 - 1
+    for module in (fused_rk4, fused_gru):
+        module.launches = 0
+    metrics = tr.train_step(tr.init_state(), images, videos, generator=g)
+    torch.cuda.synchronize()
+    assert fused_rk4.launches == 0 and fused_gru.launches == 0
+    assert all(torch.isfinite(v) for v in metrics.values())

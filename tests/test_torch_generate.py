@@ -125,7 +125,7 @@ TRAINER_SIDE = [
     ("ucf_ode", {"compute_dtype": "bfloat16"}, "M4")]
 
 
-PORTED = {"M4", "M9"}
+PORTED = {"M4", "M9", "M10"}
 FRAME_SIZE = {"mnist28": 28, "dcgan64": 64, "dcgan128": 128}
 
 
@@ -158,8 +158,9 @@ def _builds_and_trains(name, overrides):
     for name, over, item in TRAINER_SIDE])
 def test_unported_configs_name_their_roadmap_item(name, overrides, item):
     """Items still to port raise NotImplementedError naming them; the cases
-    of ported items (M4 bf16, M9 WGAN-GP@128) build at tiny widths on the
-    CPU and take a finite training step instead."""
+    of ported items (M4 bf16, M9 WGAN-GP@128, M10 the SDE, CDE, ODE-RNN and
+    MoE-ODE motions) build at tiny widths on the CPU and take a finite
+    training step instead."""
     if item in PORTED:
         _builds_and_trains(name, overrides)
         return
@@ -171,6 +172,68 @@ def test_unported_configs_name_their_roadmap_item(name, overrides, item):
             generator_for_config(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         build_trainer(cfg, device="cpu")
+
+
+M10_OPTIONS = [
+    ("mnist_sde", {"motion_method": m}) for m in
+    ("euler", "milstein", "reversible_heun", "reversible_heun_adjoint")] + [
+    ("mnist_sde", {"sde_dt": 0.1}), ("mnist_cde", {"motion_method": "midpoint"}),
+    ("mnist_ode_rnn", {"motion_method": "heun"}),
+    ("mnist_moe_ode", {"motion_method": "dopri5"}),
+    ("mnist_moe_ode", {"moe_experts": 3, "moe_top_k": 1})]
+
+
+@pytest.mark.parametrize("name,overrides", [
+    pytest.param(n, o, id=f"{n}-{'-'.join(f'{k}={v}' for k, v in o.items())}")
+    for n, o in M10_OPTIONS])
+def test_m10_motion_options_build_and_train(name, overrides):
+    """The options JAX's runner passes to the new samplers (``motion_method``,
+    ``sde_dt``, ``moe_experts``, ``moe_top_k``) reach them, and each builds
+    and takes a finite CPU step."""
+    _builds_and_trains(name, overrides)
+    gen = generator_for_config(config.get_config(name, ngf=4, **overrides),
+                               device="cpu")
+    m = gen.motion
+    assert m.method == overrides.get("motion_method", m.method)
+    if "sde_dt" in overrides:
+        assert m.dt == overrides["sde_dt"]
+    if "moe_experts" in overrides:
+        assert (m.moe_fn.expert_w1.shape[0], m.top_k) == (3, 1)
+
+
+def test_moe_backsolve_trains_on_the_cpu():
+    """The MoE sampler's ``adjoint="backsolve"`` (an option of the sampler,
+    not of the config, as in JAX) through a whole CPU step."""
+    cfg = config.get_config("mnist_moe_ode", ngf=4, ndf=4, batch_size=2,
+                            d_iters=1, dim_z_content=4, dim_z_motion=4,
+                            video_length=8)
+    tr = build_trainer(cfg, device="cpu")
+    tr.gen = make_generator("moe_ode", n_channels=1, trunk="mnist28", ngf=4,
+                            dim_z_content=4, dim_z_motion=4, video_length=8,
+                            adjoint="backsolve", device="cpu")
+    g = torch.Generator().manual_seed(0)
+    metrics = tr.train_step(tr.init_state(), torch.rand((1, 2, 28, 28, 1),
+                                                        generator=g),
+                            torch.rand((1, 2, 8, 28, 28, 1), generator=g),
+                            generator=g)
+    assert tr.gen.motion.adjoint == "backsolve"
+    assert all(np.isfinite(float(v)) for v in metrics.values()), metrics
+
+
+@pytest.mark.parametrize("name", ["mnist_sde", "mnist_cde", "mnist_ode_rnn",
+                                  "mnist_moe_ode"])
+def test_m10_configs_serve_through_the_cli_and_need_the_card(name, tmp_path):
+    out = tmp_path / "v.npz"
+    proc = _generate("--cpu", "--config", name, "--set", "ngf=8", "--num",
+                     "2", "--out", str(out))
+    assert proc.returncode == 0, proc.stderr
+    videos = np.load(out)["videos"]
+    assert videos.shape == (2, 16, 28, 28, 1) and np.all(np.isfinite(videos))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            generator_for_config(config.get_config(name))
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            build_trainer(config.get_config(name))
 
 
 @pytest.mark.parametrize("name", ["video_to_torch", "video_from_torch",

@@ -1,26 +1,37 @@
 """Helpers shared by the port's training parity tests (``test_torch_train_*``,
-``test_torch_discriminators``, ``test_torch_runner``): numpy trees, seeded
-inputs, the noise a JAX training step drew, recorded so the port can be fed
-the same, and a bit-for-bit comparison of two port states.
+``test_torch_discriminators``, ``test_torch_runner``, ``test_torch_variant_
+step``, ``test_torch_motion_variants``): numpy trees, seeded inputs, the
+noise a JAX training step drew, recorded so the port can be fed the same,
+and a bit-for-bit comparison of two port states.
 
 The JAX samplers draw their noise inside from keyed streams. ``record_noise``
 intercepts the modules that consume it (``flax.linen.intercept_methods``):
-the ``WarmupMLP`` input is the ODE sampler's ``x0``, the ``MotionODE`` output
-its trajectory, and the trunk input ``z`` holds ``z_content`` and, for an
-image sample, the motion row of the chosen frame. Inside ``jit`` and
+the ``WarmupMLP`` input is the ODE, MoE and SDE samplers' ``x0``, a motion
+sampler's output its trajectory, and the trunk input ``z`` holds
+``z_content`` and, for an image sample, the motion row of the chosen frame.
+What JAX draws inside a function rather than a module is recorded by
+wrapping that function for the test (``NoiseRecorder.patch_solvers``, a
+pytest ``MonkeyPatch``; the JAX package is not edited): the SDE solvers'
+Brownian key, turned into the increments ``dW`` by ``jax_increments``, and
+the CDE path handed to ``hermite_cubic_coefficients``. Inside ``jit`` and
 ``value_and_grad`` those values are tracers, so they are read with ordered
 ``jax.debug.callback``s, which run in program order.
 """
 from __future__ import annotations
 
 import jax
+import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from flax import linen as nn
 
+import ganode_tpu.ode as jax_ode
 from ganode_tpu.models.mocogan import DCGANTrunk64, DCGANTrunk128, MNISTTrunk28
-from ganode_tpu.models.motion import MotionODE
+from ganode_tpu.models.motion import (MotionCDE, MotionMoEODE, MotionODE,
+                                      MotionSDE)
 from ganode_tpu.nn.layers import WarmupMLP
+from ganode_tpu.ode.sde import _draw_dW, _substeps
 
 # One torch thread per test process. The suite runs several pytest-xdist
 # workers on the machine's cores; with torch's default of one OpenMP thread
@@ -45,15 +56,42 @@ def uniform(rng, *shape):
     return rng.uniform(-1.0, 1.0, shape).astype(np.float32)
 
 
+@jax.jit
+def _increment(key, k, y, sqrt_h):
+    return _draw_dW(key, k, y, sqrt_h)
+
+
+def jax_increments(key, ts, dt, shape) -> np.ndarray:
+    """The Brownian increments ``(K, *shape)`` that the JAX SDE solvers
+    draw from ``key`` over the grid ``ts`` at max step ``dt``:
+    ``ganode_tpu.ode.sde._draw_dW(key, k, y0, sqrt_h)`` for each substep k,
+    ``sqrt_h = sqrt(|h|)`` of its interval in float32, as the solver
+    computes it (x64 off)."""
+    spi = _substeps(ts, dt)
+    out = []
+    with jax.enable_x64(False):
+        t = jnp.asarray(np.asarray(ts), jnp.float32)
+        y = jnp.zeros(shape, jnp.float32)
+        for i in range(len(ts) - 1):
+            sqrt_h = jnp.sqrt(jnp.abs((t[i + 1] - t[i]) / spi))
+            for j in range(spi):
+                out.append(np.asarray(_increment(key, i * spi + j, y, sqrt_h)))
+    return np.stack(out)
+
+
+MOTIONS = (MotionODE, MotionSDE, MotionCDE, MotionMoEODE)
+
+
 class NoiseRecorder:
-    """Records, in program order, what each ODE-motion sample consumed."""
+    """Records, in program order, what each motion sample consumed."""
 
     def __init__(self):
         self.log = []
 
-    def _keep(self, tag, value):
-        jax.debug.callback(lambda a: self.log.append((tag, np.asarray(a))),
-                           value, ordered=True)
+    def _keep(self, tag, value, extra=None):
+        jax.debug.callback(
+            lambda a: self.log.append((tag, np.asarray(a), extra)), value,
+            ordered=True)
 
     def __call__(self, next_fun, args, kwargs, context):
         out = next_fun(*args, **kwargs)
@@ -61,24 +99,47 @@ class NoiseRecorder:
             m = context.module
             if isinstance(m, WarmupMLP):
                 self._keep("x0", args[0])
-            elif isinstance(m, MotionODE):
+            elif isinstance(m, MOTIONS):
                 self._keep("traj", out)
             elif isinstance(m, (MNISTTrunk28, DCGANTrunk64, DCGANTrunk128)):
                 self._keep("z", args[0])
         return out
 
+    def patch_solvers(self, mp: pytest.MonkeyPatch):
+        """Wrap the JAX SDE solvers and the CDE's spline builder, as the
+        samplers reach them (``ganode_tpu.ode.<name>``), to record the
+        Brownian key (with the grid, ``dt`` and the state's shape) and the
+        path's noise column."""
+        for name in ("sdeint", "sdeint_reversible_adjoint"):
+            def sde(drift, diffusion, y0, ts, key, *args, _f=getattr(
+                    jax_ode, name), dt=None, **kwargs):
+                self._keep("dW", key, (np.asarray(ts), dt, y0.shape))
+                return _f(drift, diffusion, y0, ts, key, *args, dt=dt,
+                          **kwargs)
+            mp.setattr(jax_ode, name, sde)
+
+        def hermite(x, t=None, _f=jax_ode.hermite_cubic_coefficients):
+            self._keep("noise", x[..., 1])
+            return _f(x, t)
+        mp.setattr(jax_ode, "hermite_cubic_coefficients", hermite)
+
     def samples(self, n: int, video_len: int, dim_z_content: int):
-        """One noise dict per sample, as the port's samplers take it:
-        ``x0`` and ``z_content``, and ``frame_idx`` for an image sample (the
-        trajectory row whose motion the trunk decoded)."""
-        if len(self.log) % 3:
-            raise AssertionError(f"odd log: {[t for t, _ in self.log]}")
-        out = []
-        for i in range(0, len(self.log), 3):
-            (t0, x0), (t1, traj), (t2, z) = self.log[i:i + 3]
-            assert (t0, t1, t2) == ("x0", "traj", "z"), (t0, t1, t2)
+        """One noise dict per sample, as the port's samplers take it: the
+        motion's noise (``x0``, ``dW``, ``noise``) and ``z_content``, and
+        ``frame_idx`` for an image sample (the trajectory row whose motion
+        the trunk decoded)."""
+        out, noise = [], {}
+        log = iter(self.log)
+        for tag, value, extra in log:
+            if tag != "traj":
+                assert tag in ("x0", "dW", "noise") and tag not in noise, tag
+                noise[tag] = (jax_increments(value, *extra) if tag == "dW"
+                              else value.astype(np.float32))
+                continue
+            traj = value
+            tag, z, _ = next(log)
+            assert tag == "z", tag
             z = z.reshape(z.shape[0], -1)
-            noise = {"x0": x0.astype(np.float32)}
             if z.shape[0] == n * video_len:       # a video: rows clip-major
                 noise["z_content"] = z[::video_len, :dim_z_content]
             else:                                  # an image
@@ -89,16 +150,20 @@ class NoiseRecorder:
                 noise["frame_idx"] = dist.argmin(1)
                 assert np.allclose(dist.min(1), 0.0, atol=1e-6)
             out.append({k: np.ascontiguousarray(v) for k, v in noise.items()})
+            noise = {}
+        assert not noise, sorted(noise)
         return out
 
 
 def record_noise(fn, *args):
-    """Run ``fn(*args)`` with float32 JAX (x64 off) and the recorder on ->
-    (result, recorder)."""
+    """Run ``fn(*args)`` with float32 JAX (x64 off) and the recorder on, the
+    solvers wrapped -> (result, recorder)."""
     rec = NoiseRecorder()
-    with nn.intercept_methods(rec), jax.enable_x64(False):
+    with pytest.MonkeyPatch.context() as mp, nn.intercept_methods(rec), \
+            jax.enable_x64(False):
+        rec.patch_solvers(mp)
         out = jax.block_until_ready(fn(*args))
-    jax.effects_barrier()
+        jax.effects_barrier()
     return out, rec
 
 
