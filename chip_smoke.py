@@ -100,9 +100,43 @@ printing one line before the next starts:
     card (< 1e-4 of each tensor's largest value), timing both;
 25. runs ``python -m ganode_tpu_torch.train --config mnist_sde --synthetic
     --steps 2`` at full width: two finite ``metrics.jsonl`` lines and a
-    checkpoint of step 2.
+    checkpoint of step 2;
+26. holds DiffAugment (``train/diffaug.py``, plain tensor code: the JAX
+    package's is plain ``jnp``, no kernel) on the card against the CPU given
+    the same draws, each op and the whole policy ungated and with ADA gates
+    at p 0, 0.5 and 1, at ``mnist_ode``'s video shape and
+    ``ucf_wgan_gp_128``'s image shape: translation and cutout exact, the
+    colour ops within 1e-6, p=1 the ungated result bit for bit, p=0 the
+    identity; and times the whole policy on a ``ucf_wgan_gp_128`` video
+    batch;
+27. trains ``mnist_ode`` at full width with the options of the JAX
+    package's ADA run (``DEMO_RESULTS_ADA.json``: ``diffaug=color,
+    translation,cutout``, ``r1_weight=0.1``, ``ada_target=0.6``,
+    ``ada_p_max=1.0``) and, in turns, without them: 2 warm-up + 3 timed
+    steps each, cuDNN TF32 on; ms/step of both, ms per phase, peak memory,
+    ``p_img`` and ``p_vid`` after each step; requires finite losses, p on
+    the device within [0, p_max], and K1's launches per step equal to the
+    unaugmented step's (6), K2 +0;
+28. trains ``ucf_wgan_gp_128`` at full width with ``diffaug=color,
+    translation,cutout`` (the JAX package's north-star run): 1 warm-up + 3
+    timed steps, beside phase 16's unaugmented step; ms/step, ms per phase,
+    peak memory; K1 and K2 +0;
+29. takes one reduced-width ADA + R1 ``mnist_ode`` step (ngf = ndf = 8,
+    B = 4, p carried in at 0.5 and 0.3) on the card and on the CPU in
+    float64, as phase 10: losses, ``rt``, ``p``, parameters, statistics and
+    Adam moments within 1e-4;
+30. closes the loop on the card: trains 2 steps of the ADA config with EMA
+    through ``python -m ganode_tpu_torch.train`` (a child process), serves
+    its workdir through ``python -m ganode_tpu_torch.generate --workdir
+    --out --gif`` (another), and holds the videos against
+    ``GeneratorSession`` on ``eval_gen_variables`` of the restored state and
+    the GIF, decoded by ``utils/gifs.read_gif``, against their grid;
+31. times what the discriminators' ``leaky_relu`` with flax's derivative at
+    0 (``nn/layers.py``) costs against ``F.leaky_relu``: the
+    ``ucf_ode`` (TF32 on) and ``ucf_wgan_gp_128`` steps in turns (flax,
+    fused, fused, flax) in this process.
 
-Float32, except phase 20; each of phases 21-25 prints its seconds. Matrix
+Float32, except phase 20; each of phases 21-31 prints its seconds. Matrix
 products run in full float32 (``torch.backends.cuda.matmul.allow_tf32 =
 False``); the correctness checks also turn TF32 off for cuDNN's
 convolutions, and the serving and training times are taken with cuDNN's
@@ -163,6 +197,18 @@ WGAN_RUNNER_STEPS = 2
 # the SDE, CDE, ODE-RNN and MoE-ODE configs (phase 21): timed full-width
 # steps after two warm-up steps
 VARIANT_STEPS = 3
+# DiffAugment and ADA (phases 26-30): the JAX package's documented options,
+# timed steps after 2 (mnist_ode) and 1 (ucf_wgan_gp_128) warm-up steps; the
+# card against the CPU for the colour ops (float32, another summation order
+# in the means)
+DIFFAUG = "color,translation,cutout"
+ADA_RUN = {"diffaug": DIFFAUG, "r1_weight": 0.1, "ada_target": 0.6,
+           "ada_p_max": 1.0}
+DIFFAUG_STEPS = 3
+TOL_COLOR = 1e-6
+# Videos the generate CLI served against the same sampling in this process:
+# the same ops on the same card, cuDNN choosing its algorithms per process.
+TOL_CROSS_PROCESS = 1e-6
 # A spectral-norm critic's u is a unit vector: after a step, its norm within
 # this of 1 (float32 power iteration).
 TOL_U_NORM = 1e-5
@@ -258,10 +304,13 @@ def phase_ms(tr, state, images, videos, generator, n):
     for _ in range(n):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 * d + 2)]
         ev[0].record()
+        ada = state.ada or {}
         for i in range(d):
-            tr._d_phase(state, "image", images[i], {}, generator)
+            tr._d_phase(state, "image", images[i], {}, generator,
+                        ada.get("p_img"))
             ev[2 * i + 1].record()
-            tr._d_phase(state, "video", videos[i], {}, generator)
+            tr._d_phase(state, "video", videos[i], {}, generator,
+                        ada.get("p_vid"))
             ev[2 * i + 2].record()
         tr._g_update(state, {}, {}, generator)
         ev[-1].record()
@@ -285,13 +334,22 @@ def backward_ms(module, motion_args, events_ms):
                                                  retain_graph=True), 10)
 
 
-def card_vs_cpu_step(dev, cfg_r):
+def cast_noise(noise: dict, dtype) -> dict:
+    """A noise dict with its float tensors (the augmentation's draws, nested,
+    too) in ``dtype``."""
+    return {k: cast_noise(v, dtype) if isinstance(v, dict) else
+            v.to(dtype) if v.is_floating_point() else v
+            for k, v in noise.items()}
+
+
+def card_vs_cpu_step(dev, cfg_r, ada=None):
     """One ``train_step`` of the reduced-width config ``cfg_r`` from one
     state and one noise tape, on the card in float32 and on the CPU in
     float64 (the plain motion) and in float32 -> (the card's max |loss diff|
-    and max |diff| over every net's parameters, statistics (BatchNorm's,
-    spectral norm's ``u``) and Adam moments from float64, the same two for
-    the CPU's float32, tensors compared).
+    (and ADA metrics') and max |diff| over every net's parameters,
+    statistics (BatchNorm's, spectral norm's ``u``) and Adam moments from
+    float64, the same two for the CPU's float32, tensors compared). ``ada``
+    sets the carried state's ADA probabilities.
 
     The state is carried across after one CPU step: Adam's first step from
     zero moments is lr * sign(g), which turns the rounding of a near-zero
@@ -322,8 +380,9 @@ def card_vs_cpu_step(dev, cfg_r):
             getattr(st, n).opt.load_state_dict(
                 copy.deepcopy(getattr(st_c, n).opt.state_dict()))
         st.step = st_c.step
-        tape = [{k: v.to(dtype) if v.is_floating_point() else v
-                 for k, v in d.items()}
+        if ada is not None:
+            st.ada = {k: torch.tensor(v, device=device) for k, v in ada.items()}
+        tape = [cast_noise(d, dtype)
                 for d in tr.noise_tape(torch.Generator().manual_seed(7), device)]
         metrics = tr.train_step(st, ims.to(device, dtype),
                                 vids.to(device, dtype), noise=tape)
@@ -1388,6 +1447,309 @@ def variant_phases(dev, card, events_ms) -> dict:
     return out
 
 
+def timed_steps(tr, state, images, videos, generator, warmup, n):
+    """``warmup`` steps, then ``n`` timed between CUDA events with the
+    kernel counts from 0 -> (ms per step, peak memory, the last metrics,
+    K1 and K2 launches, ADA's p after each timed step)."""
+    import torch
+
+    from ganode_tpu_torch.ops import fused_gru, fused_rk4
+
+    for _ in range(warmup):
+        tr.train_step(state, images, videos, generator=generator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ps = []
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(n):
+        metrics = tr.train_step(state, images, videos, generator=generator)
+        if state.ada is not None:
+            ps.append(dict(state.ada))     # device tensors: no sync here
+    b.record()
+    torch.cuda.synchronize()
+    ps = [{k: v.item() for k, v in p.items()} for p in ps]
+    return (a.elapsed_time(b) / n, torch.cuda.max_memory_allocated(),
+            {k: v.item() for k, v in metrics.items()}, fused_rk4.launches,
+            fused_gru.launches, ps)
+
+
+def diffaug_phases(dev, card, events_ms, wgan_ms) -> dict:
+    """Phases 26-30 (module docstring): DiffAugment and ADA; returns the
+    record's entry."""
+    import numpy as np
+    import torch
+
+    from ganode_tpu_torch.compat import GeneratorSession
+    from ganode_tpu_torch.train import build_trainer
+    from ganode_tpu_torch.train.diffaug import diff_augment, diffaug_draws
+    from ganode_tpu_torch.utils import gifs, layout
+    from ganode_tpu_torch.utils.checkpoint import CheckpointManager
+    from ganode_tpu_torch.utils.config import get_config
+
+    out = {}
+    t0 = time.perf_counter()
+    phase("DiffAugment on the card against the CPU, same draws: each op and "
+          "the policy, ungated and gated at p 0, 0.5, 1")
+    g = torch.Generator().manual_seed(3)
+    shapes = {"mnist_ode video": (32, 16, 28, 28, 1),
+              "ucf_wgan_gp_128 image": (32, 128, 128, 3)}
+    worst = {"exact": 0.0, "color": 0.0}
+    n_checks = 0
+    for shape in shapes.values():
+        x = torch.rand(shape, generator=g) * 2 - 1
+        xd = x.to(dev)
+        for op in ("brightness", "saturation", "contrast", "translation",
+                   "cutout", DIFFAUG):
+            draws = diffaug_draws(op, shape, True, g)
+            plain = diff_augment(xd, op, draws=draws)
+            for p in (None, 0.0, 0.5, 1.0):
+                pt = None if p is None else torch.tensor(p)
+                got = diff_augment(xd, op, None if pt is None else pt.to(dev),
+                                   draws=draws)
+                err = (got.cpu() - diff_augment(x, op, pt, draws=draws)
+                       ).abs().max().item()
+                kind = "exact" if op in ("translation", "cutout") else "color"
+                worst[kind] = max(worst[kind], err)
+                require(err == 0.0 if kind == "exact" else err <= TOL_COLOR,
+                        f"diff_augment {op} p={p} card vs CPU {err}")
+                if p == 1.0:
+                    require(torch.equal(got, plain),
+                            f"diff_augment {op}: p=1 is not the ungated result")
+                if p == 0.0:
+                    require(torch.equal(got, xd),
+                            f"diff_augment {op}: p=0 is not the identity")
+                n_checks += 1
+    vshape = (32, 32, 128, 128, 3)   # ucf_wgan_gp_128's video batch
+    v = torch.rand(vshape, device=dev)
+    vdraws = diffaug_draws(DIFFAUG, vshape, True, torch.Generator().manual_seed(4))
+    half = torch.tensor(0.5, device=dev)
+    with torch.no_grad():
+        policy_ms = events_ms(lambda: diff_augment(v, DIFFAUG, draws=vdraws), 5)
+        gated_ms = events_ms(lambda: diff_augment(v, DIFFAUG, half,
+                                                  draws=vdraws), 5)
+    mb = v.numel() * 4 / 1e6
+    say(f"diff_augment card vs CPU: {n_checks} checks at {list(shapes)}; "
+        f"translation and cutout max|diff| {worst['exact']:.1e} (exact), "
+        f"colour ops {worst['color']:.3e} (tol {TOL_COLOR}); p=1 equal to "
+        f"the ungated result, p=0 the identity; the policy on one "
+        f"{vshape} video batch ({mb:.1f} MB, float32): {policy_ms:.3f} ms "
+        f"ungated, {gated_ms:.3f} ms gated at p=0.5 (eager, no grad); "
+        f"{time.perf_counter() - t0:.1f} s; {card}")
+    out["diff_augment"] = {"checks": n_checks, "max_abs_exact": worst["exact"],
+                           "max_abs_color": worst["color"],
+                           "video_batch_ms": policy_ms,
+                           "video_batch_gated_ms": gated_ms,
+                           "video_batch_mb": mb}
+    del v, vdraws
+
+    t0 = time.perf_counter()
+    phase("train mnist_ode at full width with DEMO_RESULTS_ADA's options "
+          f"({ADA_RUN}) and without: 2 warm-up + {DIFFAUG_STEPS} timed steps "
+          "each, in turns, cuDNN TF32 on")
+    torch.backends.cudnn.allow_tf32 = True
+    rec = {}
+    runs = {"ada": [], "plain": []}
+    trainers = {}
+    for name, kw in (("ada", ADA_RUN), ("plain", {})):
+        cfg = get_config("mnist_ode", **kw)
+        tr = build_trainer(cfg, device=dev)
+        trainers[name] = (cfg, tr, tr.init_state(),
+                          torch.Generator(dev).manual_seed(0))
+    images, videos = random_batches(trainers["ada"][0], dev, 5)
+    for name in ("ada", "plain", "plain", "ada"):
+        cfg, tr, state, gt = trainers[name]
+        runs[name].append(timed_steps(tr, state, images, videos, gt, 2,
+                                      DIFFAUG_STEPS))
+    for name, results in runs.items():
+        cfg, tr, state, gt = trainers[name]
+        ms = [r[0] for r in results]
+        mem, losses, k1, k2 = results[-1][1:5]
+        per_step = [r[3] / DIFFAUG_STEPS for r in results]
+        require(all(math.isfinite(v) for r in results for v in r[2].values()),
+                f"mnist_ode {name}: non-finite losses {losses}")
+        require(all(r[4] == 0 for r in results), f"mnist_ode {name}: K2 {k2}")
+        phases = phase_ms(tr, state, images, videos, gt, 1)
+        rec[name] = {"ms_per_step": ms, "max_memory_bytes": mem,
+                     "losses": losses, "k1_launches_per_step": per_step,
+                     "k2_launches": sum(r[4] for r in results),
+                     "phase_ms": phases}
+        if name == "ada":
+            ps = [p for r in results for p in r[5]]
+            require(len(ps) == 2 * DIFFAUG_STEPS and all(
+                0.0 <= v <= cfg.ada_p_max for p in ps for v in p.values()),
+                f"ADA p out of [0, {cfg.ada_p_max}]: {ps}")
+            require(all(v.device.type == "cuda" and v.dtype == torch.float32
+                        for v in state.ada.values()), "ADA p left the card")
+            rec[name]["p_after_each_step"] = ps
+        say(f"mnist_ode {name} train_step: {' / '.join(f'{m:.3f}' for m in ms)} "
+            f"ms/step (two turns); phases per step: D_img "
+            f"{phases['d_img']:.3f} ms, D_vid {phases['d_vid']:.3f} ms, G "
+            f"{phases['g']:.3f} ms; peak memory {mem / 2 ** 30:.2f} GiB; K1 "
+            f"launches per step {per_step}, K2 +{k2}; losses {losses}"
+            + (f"; p after each step {rec[name]['p_after_each_step']}"
+               if name == "ada" else "") + f"; {card}")
+    require(rec["ada"]["k1_launches_per_step"] == rec["plain"][
+        "k1_launches_per_step"] == [6.0, 6.0],
+            f"K1 per step: augmented {rec['ada']['k1_launches_per_step']}, "
+            f"plain {rec['plain']['k1_launches_per_step']}")
+    say(f"mnist_ode: the ADA step {np.mean(rec['ada']['ms_per_step']):.3f} "
+        f"ms against {np.mean(rec['plain']['ms_per_step']):.3f} unaugmented "
+        f"(means of two turns); {time.perf_counter() - t0:.1f} s; {card}")
+    out["mnist_ode_ada"] = rec
+    del trainers, images, videos
+
+    t0 = time.perf_counter()
+    phase(f"train ucf_wgan_gp_128 at full width with diffaug={DIFFAUG}: 1 "
+          f"warm-up + {DIFFAUG_STEPS} timed steps, cuDNN TF32 on")
+    cfg = get_config("ucf_wgan_gp_128", diffaug=DIFFAUG)
+    tr = build_trainer(cfg, device=dev)
+    state = tr.init_state()
+    gt = torch.Generator(dev).manual_seed(0)
+    images, videos = random_batches(cfg, dev, 0)
+    ms, mem, losses, k1, k2, _ = timed_steps(tr, state, images, videos, gt, 1,
+                                             DIFFAUG_STEPS)
+    require(k1 == 0 and k2 == 0, f"ucf_wgan_gp_128 + diffaug: K1 {k1} / K2 {k2}")
+    require(all(map(math.isfinite, losses.values())), f"losses {losses}")
+    phases = phase_ms(tr, state, images, videos, gt, 1)
+    say(f"ucf_wgan_gp_128 + diffaug train_step: {ms:.3f} ms/step against "
+        f"{wgan_ms:.3f} unaugmented (phase 16, this run); phases per step: "
+        f"D_img {phases['d_img']:.3f} ms, D_vid {phases['d_vid']:.3f} ms, G "
+        f"{phases['g']:.3f} ms; peak memory {mem / 2 ** 30:.2f} GiB; K1 +{k1}, "
+        f"K2 +{k2}; losses {losses}; {time.perf_counter() - t0:.1f} s; {card}")
+    out["ucf_wgan_gp_128_diffaug"] = {
+        "ms_per_step": ms, "unaugmented_ms_per_step": wgan_ms,
+        "phase_ms": phases, "max_memory_bytes": mem, "losses": losses,
+        "k1_launches": k1, "k2_launches": k2}
+    del tr, state, images, videos
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    phase("one ADA + R1 mnist_ode step at reduced width (ngf=ndf=8, B=4, p "
+          "carried in at 0.5 and 0.3): card vs CPU float64")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        err_loss, err_nets, cpu_loss, cpu_nets, n_tensors = card_vs_cpu_step(
+            dev, get_config("mnist_ode", ngf=8, ndf=8, batch_size=4,
+                            ada_step=0.05, **ADA_RUN),
+            ada={"p_img": 0.5, "p_vid": 0.3})
+    finally:
+        torch.backends.cudnn.deterministic = False
+    say(f"ADA + R1 train_step vs the CPU's float64 step: card (float32, TF32 "
+        f"off, cuDNN deterministic) losses, rt and p max|diff| "
+        f"{err_loss:.3e}, parameters, statistics and Adam moments max|diff| "
+        f"{err_nets:.3e} over {n_tensors} tensors (tol {TOL_STEP}); the CPU's "
+        f"float32 step {cpu_loss:.3e} and {cpu_nets:.3e}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    require(err_loss < TOL_STEP and err_nets < TOL_STEP,
+            f"ADA card vs CPU: losses {err_loss}, nets {err_nets}")
+    out["ada_card_vs_cpu_max_abs"] = {
+        "losses_rt_p": err_loss, "nets": err_nets,
+        "cpu_float32_losses_rt_p": cpu_loss, "cpu_float32_nets": cpu_nets}
+
+    t0 = time.perf_counter()
+    phase("the loop closed: python -m ganode_tpu_torch.train (ADA options, "
+          "EMA, 2 steps) then python -m ganode_tpu_torch.generate --workdir "
+          "--out --gif")
+    torch.backends.cudnn.allow_tf32 = True
+    sets = [f"{k}={v}" for k, v in ADA_RUN.items()] + ["ema_decay=0.999"]
+    set_args = [a for s in sets for a in ("--set", s)]
+    tmp = tempfile.mkdtemp(prefix="ganode_loop_")
+    try:
+        wd = os.path.join(tmp, "run")
+        npz, gif = os.path.join(tmp, "v.npz"), os.path.join(tmp, "g.gif")
+        run_child([sys.executable, "-m", "ganode_tpu_torch.train", "--config",
+                   "mnist_ode", "--synthetic", "--steps", "2", "--workdir", wd,
+                   "--set", "log_every=1"] + set_args,
+                  "the training CLI with ADA")
+        lines = jsonl(os.path.join(wd, "metrics.jsonl"))
+        require([l["step"] for l in lines] == [0, 1] and all(
+            math.isfinite(l[k]) for l in lines for k in
+            ("gen_loss", "rt_img", "rt_vid", "ada_p_img", "ada_p_vid")),
+            f"ADA metrics.jsonl: {lines}")
+        printed = run_child(
+            [sys.executable, "-m", "ganode_tpu_torch.generate", "--config",
+             "mnist_ode", "--workdir", wd, "--num", "16", "--out", npz,
+             "--gif", gif] + set_args, "the generate CLI on the workdir")
+        require("restored step 2" in printed, f"generate printed {printed}")
+        videos = np.load(npz)["videos"]
+        cfg = get_config("mnist_ode", **ADA_RUN, ema_decay=0.999)
+        tr = build_trainer(cfg, device=dev)
+        state = CheckpointManager(os.path.join(wd, "checkpoints")).restore(
+            tr.init_state())
+        require(state.step == 2 and state.ema_params is not None
+                and state.ada is not None, "the restored state")
+        sess = GeneratorSession(tr.gen, tr.eval_gen_variables(state), seed=0,
+                                device=dev)
+        want = layout.video_from_torch(sess.sample_videos(16)[0]).cpu().numpy()
+        err = float(np.abs(videos - want).max())
+        frames = gifs.read_gif(gif)
+        grid = np.repeat(gifs.video_grid(videos, 4), 3, axis=-1)
+        require(videos.shape == (16, 16, 28, 28, 1) and err <= TOL_CROSS_PROCESS,
+                f"served videos {videos.shape}, {err} from GeneratorSession")
+        require(frames.shape == grid.shape and np.array_equal(frames, grid),
+                f"GIF {frames.shape} does not decode to the 4x4 grid")
+        seconds = time.perf_counter() - t0
+        say(f"loop: trained 2 ADA steps with EMA and served the workdir's step "
+            f"2 through the CLI: {videos.shape} videos, max|diff| {err:.1e} "
+            f"from GeneratorSession on eval_gen_variables (the EMA weights); "
+            f"GIF {os.path.getsize(gif)} bytes decoded by utils/gifs.read_gif "
+            f"to its {frames.shape} grid exactly; p after 2 steps "
+            f"{ {k: v.item() for k, v in state.ada.items()} }; {seconds:.1f} "
+            f"s; {card}")
+        out["loop"] = {"seconds": seconds, "max_abs_vs_session": err,
+                       "gif_bytes": os.path.getsize(gif)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def leaky_relu_phase(dev, card) -> dict:
+    """Phase 31 (module docstring); returns the record's entry."""
+    import torch
+    import torch.nn.functional as F
+
+    import ganode_tpu_torch.models.mocogan as mocogan
+    from ganode_tpu_torch.train import build_trainer
+    from ganode_tpu_torch.utils.config import get_config
+
+    t0 = time.perf_counter()
+    phase("the leaky_relu repair's cost: ucf_ode and ucf_wgan_gp_128 steps "
+          "with flax's derivative at 0 and with F.leaky_relu, in turns")
+    torch.backends.cudnn.allow_tf32 = True
+    flax_like = mocogan.leaky_relu
+    fused = lambda x, negative_slope=0.2: F.leaky_relu(x, negative_slope)
+    out = {}
+    for name, warmup, n in (("ucf_ode", 2, 5), ("ucf_wgan_gp_128", 1, 2)):
+        cfg = get_config(name)
+        tr = build_trainer(cfg, device=dev)
+        state = tr.init_state()
+        gt = torch.Generator(dev).manual_seed(0)
+        images, videos = random_batches(cfg, dev, 0)
+        runs = {"flax": [], "fused": []}
+        try:
+            for which in ("flax", "fused", "fused", "flax"):
+                mocogan.leaky_relu = flax_like if which == "flax" else fused
+                runs[which].append(timed_steps(tr, state, images, videos, gt,
+                                               warmup, n)[0])
+        finally:
+            mocogan.leaky_relu = flax_like
+        out[name] = runs
+        mean = {k: sum(v) / len(v) for k, v in runs.items()}
+        say(f"{name} train_step, leaky_relu with flax's derivative at 0 "
+            f"{' / '.join(f'{m:.3f}' for m in runs['flax'])} ms against "
+            f"F.leaky_relu {' / '.join(f'{m:.3f}' for m in runs['fused'])} "
+            f"(turns flax, fused, fused, flax; {n} steps each after "
+            f"{warmup}): {100 * (mean['flax'] / mean['fused'] - 1):+.2f} %; "
+            f"{card}")
+        del tr, state, images, videos
+        torch.cuda.empty_cache()
+    say(f"leaky_relu phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     faulthandler.enable()
     phase("watchdog armed: %d s per phase" % WATCHDOG_S)
@@ -1695,6 +2057,9 @@ def main() -> int:
     training["ucf_ode_bf16"] = bf16_phase(
         dev, card, training["ucf_ode"]["tf32_on"]["ms_per_step"], events_ms)
     training["motion_variants"] = variant_phases(dev, card, events_ms)
+    training["diffaug"] = diffaug_phases(dev, card, events_ms,
+                                         wgan["ms_per_step"])
+    training["leaky_relu_cost_ms"] = leaky_relu_phase(dev, card)
 
     worst = lambda kernel: max(e for (k, _), e in errs.items() if k == kernel)
     record = {"kernels": [
@@ -1736,6 +2101,21 @@ def main() -> int:
             if name in VARIANTS:
                 kernel["launches_by_path"][f"train_step {name}, per step"] = \
                     rec[f"{key}_launches_per_step"]
+    # DiffAugment adds no motion solve: the ADA mnist_ode step launches K1 as
+    # the unaugmented one does, and the augmented dopri5 path neither kernel
+    aug = training["diffaug"]
+    k1_paths = record["kernels"][0]["launches_by_path"]
+    k1_paths["train_step mnist_ode + diffaug + ADA + R1, per step"] = \
+        aug["mnist_ode_ada"]["ada"]["k1_launches_per_step"][0]
+    k1_paths["train_step mnist_ode, per step"] = \
+        aug["mnist_ode_ada"]["plain"]["k1_launches_per_step"][0]
+    for kernel, key in zip(record["kernels"], ("k1", "k2")):
+        kernel["launches_by_path"]["train_step ucf_wgan_gp_128 + diffaug, "
+                                   f"{DIFFAUG_STEPS} steps"] = \
+            aug["ucf_wgan_gp_128_diffaug"][f"{key}_launches"]
+    record["kernels"][1]["launches_by_path"][
+        f"train_step mnist_ode + diffaug + ADA + R1, {2 * DIFFAUG_STEPS} "
+        "steps"] = aug["mnist_ode_ada"]["ada"]["k2_launches"]
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -148,7 +148,8 @@ def torch_to_jax(state_dict: dict) -> dict:
 #     {"gen" | "dis_img" | "dis_vid": {"params", "batch_stats",
 #                                      "spectral" (or None),
 #                                      "opt_state": {"count", "mu", "nu"}},
-#      "step", "ema_params" (or None), "ada" (None)}
+#      "step", "ema_params" (or None),
+#      "ada" (None, or {"p_img", "p_vid"}: 0-d float32 arrays)}
 # ---------------------------------------------------------------------------
 
 NETS = ("gen", "dis_img", "dis_vid")
@@ -180,10 +181,10 @@ def _params_to_torch(tree: dict, module) -> dict:
 def gan_state_to_torch(jax_state, state) -> None:
     """Load a flax ``GANState`` (numpy leaves) into the port's ``GANState``
     in place: each net's params, batch stats and spectral-norm ``u``, its
-    Adam step and moments, the step count and the EMA params."""
-    if getattr(jax_state, "ada", None) is not None:
-        raise NotImplementedError("the ADA controller state waits for "
-                                  "ROADMAP M11")
+    Adam step and moments, the step count, the EMA params and the ADA
+    controller's probabilities. A JAX state without ``ada`` leaves the
+    port state's own, as a checkpoint without one does
+    (``utils/checkpoint.py``)."""
     for name in NETS:
         src, net = getattr(jax_state, name), getattr(state, name)
         device = next(net.module.parameters()).device
@@ -206,6 +207,12 @@ def gan_state_to_torch(jax_state, state) -> None:
     state.ema_params = (None if jax_state.ema_params is None else
                         _params_to_torch(jax_state.ema_params,
                                          state.gen.module))
+    ada = getattr(jax_state, "ada", None)
+    if ada is not None:
+        device = next(state.gen.module.parameters()).device
+        state.ada = {k: torch.tensor(np.asarray(ada[k]), dtype=torch.float32,
+                                     device=device)
+                     for k in ("p_img", "p_vid")}
 
 
 def torch_gan_state_to_jax(state) -> dict:
@@ -234,5 +241,7 @@ def torch_gan_state_to_jax(state) -> dict:
     out["step"] = np.int32(state.step)
     out["ema_params"] = (None if state.ema_params is None
                          else torch_to_jax(state.ema_params)["params"])
-    out["ada"] = None
+    out["ada"] = (None if state.ada is None else
+                  {k: np.asarray(v.detach().cpu(), np.float32)
+                   for k, v in state.ada.items()})
     return out

@@ -2,18 +2,26 @@
 ``scripts/generate.py``).
 
   python -m ganode_tpu_torch.generate --config ucf_ode --num 64 --out v.npz \
-      [--weights gen.pt] [--set FIELD=VALUE ...] [--video-len 32] [--cpu]
+      [--workdir RUN | --weights gen.pt] [--gif grid.gif] \
+      [--set FIELD=VALUE ...] [--video-len 32] [--cpu]
 
-Writes an .npz of videos ``(N, T, H, W, C)`` in [-1, 1] to ``--out``; without
-``--out`` nothing is written. ``--weights`` loads a port ``state_dict`` (for
-instance one written from JAX variables by ``ganode_tpu_torch.bridge``);
-without it the generator runs on its seeded initial weights. Runs on the CUDA
-card unless ``--cpu`` is given; with no card and no ``--cpu`` it exits with an
-error. ``--int8`` and ``--gif`` wait for ROADMAP M16 and M18.
+Writes an .npz of videos ``(N, T, H, W, C)`` in [-1, 1] to ``--out`` and an
+n x n GIF grid of the first n * n (n = int(sqrt(N))) to ``--gif``; without
+either nothing is written. ``--workdir`` serves a training run
+(``python -m ganode_tpu_torch.train --workdir RUN``): it builds the config's
+trainer, restores the latest checkpoint under ``RUN/checkpoints`` and samples
+from ``eval_gen_variables``, the EMA weights when EMA is on; the ``--set``
+overrides must give the run's sizes. ``--weights`` loads a bare generator
+``state_dict`` instead (for instance one written from JAX variables by
+``ganode_tpu_torch.bridge``). With neither, or a workdir without a
+checkpoint, the generator runs on its seeded initial weights. Runs on the
+CUDA card unless ``--cpu`` is given; with no card and no ``--cpu`` it exits
+with an error. ``--int8`` waits for ROADMAP M16.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import numpy as np
@@ -22,8 +30,28 @@ import torch
 from . import resolve_device
 from .compat import GeneratorSession
 from .models import generator_for_config
+from .train.runner import build_trainer
 from .utils import layout
+from .utils.checkpoint import CheckpointManager
 from .utils.config import get_config, overrides_from_strings
+from .utils.gifs import save_sample_grid
+
+NO_CHECKPOINT = "WARNING: no checkpoint — generating from the initial model"
+
+
+def _restored(config, workdir, device):
+    """-> (the generator, its eval-mode weights) of the latest checkpoint of
+    the training run in ``workdir``, or of the trainer's initial state
+    (with a warning) when there is none."""
+    trainer = build_trainer(config, device=device)
+    state = trainer.init_state()
+    mgr = CheckpointManager(os.path.join(workdir, "checkpoints"))
+    if mgr.latest_step() is not None:
+        state = mgr.restore(state)
+        print(f"restored step {mgr.latest_step()}")
+    else:
+        print(NO_CHECKPOINT)
+    return trainer.gen, trainer.eval_gen_variables(state)
 
 
 def main(argv=None):
@@ -34,8 +62,13 @@ def main(argv=None):
     p.add_argument("--video-len", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default=None, help=".npz output path")
-    p.add_argument("--weights", default=None,
-                   help="port state_dict (.pt) to load into the generator")
+    p.add_argument("--gif", default=None, help="GIF grid output path")
+    src = p.add_mutually_exclusive_group()
+    src.add_argument("--workdir", default=None,
+                     help="a training run's directory: serve its latest "
+                          "checkpoint (the EMA weights when EMA is on)")
+    src.add_argument("--weights", default=None,
+                     help="port state_dict (.pt) to load into the generator")
     p.add_argument("--set", dest="sets", action="append", default=[],
                    metavar="FIELD=VALUE", help="config overrides")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
@@ -51,14 +84,17 @@ def main(argv=None):
     except RuntimeError as e:
         sys.exit(f"error: {e}")
 
-    gen = generator_for_config(config, device=device)
-    state_dict = None
-    if args.weights:
-        state_dict = torch.load(args.weights, map_location="cpu",
-                                weights_only=True)
-        print(f"loaded {args.weights}")
+    if args.workdir:
+        gen, state_dict = _restored(config, args.workdir, device)
     else:
-        print("WARNING: no checkpoint — generating from the initial model")
+        gen = generator_for_config(config, device=device)
+        state_dict = None
+        if args.weights:
+            state_dict = torch.load(args.weights, map_location="cpu",
+                                    weights_only=True)
+            print(f"loaded {args.weights}")
+        else:
+            print(NO_CHECKPOINT)
     sess = GeneratorSession(gen, state_dict, seed=args.seed, device=device)
 
     videos = []
@@ -72,6 +108,10 @@ def main(argv=None):
     if args.out:
         np.savez_compressed(args.out, videos=videos)
         print(f"wrote {args.out}")
+    if args.gif:
+        n = int(np.sqrt(len(videos)))
+        save_sample_grid(args.gif, videos[:n * n], n=n)
+        print(f"wrote {args.gif}")
 
 
 if __name__ == "__main__":

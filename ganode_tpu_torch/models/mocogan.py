@@ -123,6 +123,8 @@ class _DeconvPyramid(nn.Module):
 class DCGANTrunk64(_DeconvPyramid):
     """z (B', dim_z) -> frames (B', n_channels, 64, 64) in [-1, 1]."""
 
+    frame_size = 64
+
     def __init__(self, n_channels: int, ngf: int = 64, dim_z: int = 66,
                  dtype: Optional[torch.dtype] = None):
         super().__init__(dim_z, ngf, dtype)
@@ -137,6 +139,8 @@ class DCGANTrunk128(_DeconvPyramid):
     """z (B', dim_z) -> frames (B', n_channels, 128, 128) in [-1, 1]: the
     dcgan64 pyramid with one more doubling stage, ngf*16 channels first
     (``ganode_tpu/models/mocogan.py:105``)."""
+
+    frame_size = 128
 
     def __init__(self, n_channels: int, ngf: int = 64, dim_z: int = 66,
                  dtype: Optional[torch.dtype] = None):
@@ -154,6 +158,8 @@ class MNISTTrunk28(_DeconvPyramid):
     The pyramid to 32x32, then a 1x1 conv with a 2-pixel crop — the JAX
     package's equivalent of the reference's ConvTranspose2d(k=1, s=1, p=2).
     """
+
+    frame_size = 28
 
     def __init__(self, n_channels: int, ngf: int = 64, dim_z: int = 66,
                  dtype: Optional[torch.dtype] = None):
@@ -214,6 +220,11 @@ class VideoGenerator(nn.Module):
     @property
     def device(self) -> torch.device:
         return next(self.parameters()).device
+
+    @property
+    def frame_size(self) -> int:
+        """The trunk's frame height and width."""
+        return self.main.frame_size
 
     def _content(self, n, generator, z_content, labels):
         """-> (z_content (n, dim_z_content), one-hot categories or None, labels)."""

@@ -18,8 +18,30 @@ import torch.nn.functional as F
 from torch import nn
 
 
+class _LeakyReLU(torch.autograd.Function):
+    """``F.leaky_relu`` whose derivative at 0 is 1, as flax's
+    ``jnp.where(x >= 0, x, slope * x)`` has it (torch's is the slope). The
+    backward is made of differentiable ops, so a penalty's double backward
+    runs through it."""
+
+    @staticmethod
+    def forward(ctx, x, negative_slope):
+        ctx.save_for_backward(x)
+        ctx.negative_slope = negative_slope
+        return F.leaky_relu(x, negative_slope)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, grad, grad * ctx.negative_slope), None
+
+
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
-    return F.leaky_relu(x, negative_slope)
+    """The JAX package's ``leaky_relu``: the slope below 0, the identity from
+    0 up, derivative included. Exact zeros reach it wherever DiffAugment's
+    cutout and translation zero a whole conv window, and a gradient
+    penalty differentiates there."""
+    return _LeakyReLU.apply(x, negative_slope)
 
 
 class BatchNorm(nn.Module):

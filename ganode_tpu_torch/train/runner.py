@@ -53,9 +53,6 @@ def build_trainer(config: ExperimentConfig, *, device="cuda") -> GANTrainer:
     """The trainer ``config`` describes, its three nets on ``device`` with
     weights drawn from ``config.seed``. Configs whose pieces are not ported
     raise ``NotImplementedError`` naming their ROADMAP item."""
-    if config.diffaug or config.ada_target > 0:
-        raise NotImplementedError(
-            "DiffAugment and ADA (diffaug, ada_target) wait for ROADMAP M11")
     gen = generator_for_config(config, device=device)
     dis_img, dis_vid = discriminators_for_config(config, device=device)
     return GANTrainer(
@@ -65,7 +62,9 @@ def build_trainer(config: ExperimentConfig, *, device="cuda") -> GANTrainer:
         weight_decay=config.weight_decay,
         param_noise_sigma=config.param_noise_sigma,
         gp_weight=config.gp_weight, r1_weight=config.r1_weight,
-        ema_decay=config.ema_decay, fused_real_fake=config.fused_real_fake)
+        ema_decay=config.ema_decay, fused_real_fake=config.fused_real_fake,
+        diffaug=config.diffaug, ada_target=config.ada_target,
+        ada_step=config.ada_step, ada_p_max=config.ada_p_max)
 
 
 def step_rng(seed: int, step: int, stream: int) -> np.random.Generator:

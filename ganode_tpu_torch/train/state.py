@@ -25,5 +25,6 @@ class GANState:
     step: int = 0
     # EMA of the generator's parameters, by parameter name (None when off)
     ema_params: Optional[dict] = None
-    # the ADA controller's state: always None until ROADMAP M11
-    ada: None = None
+    # the ADA controller's state, {"p_img", "p_vid"} as 0-d float32 tensors
+    # on the device (None when ADA is off)
+    ada: Optional[dict] = None

@@ -3,8 +3,8 @@
 
 One ``torch.save`` blob per step, ``<directory>/<step>/state.pt``, holding
 each net's module ``state_dict`` (parameters and BatchNorm running
-statistics) and ``torch.optim.Adam`` ``state_dict``, the step and the EMA
-parameters. The blob names no path, so a step directory copied elsewhere
+statistics) and ``torch.optim.Adam`` ``state_dict``, the step, the EMA
+parameters and the ADA controller's probabilities. The blob names no path, so a step directory copied elsewhere
 restores bit for bit. A save writes a temporary file and moves it into place
 with ``os.replace``, so a reader never sees half a checkpoint. Saves are
 synchronous, so there is no ``wait`` flag and nothing to ``close``, as the
@@ -46,6 +46,7 @@ class CheckpointManager:
                 for name in NETS}
         blob["step"] = int(state.step)
         blob["ema_params"] = state.ema_params
+        blob["ada"] = state.ada
         path = self._path(step)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         tmp = f"{path}.tmp{os.getpid()}"
@@ -59,10 +60,14 @@ class CheckpointManager:
         """Load step ``step`` (default: the latest) into ``state`` in place
         and return it. Raises FileNotFoundError when there is none.
 
-        The EMA slot follows the checkpoint both ways, as the JAX manager's
-        ``_reconcile_optional_slots`` has it: a state built without EMA gets
-        the saved EMA parameters, and one built with EMA loses its slot when
-        the checkpoint has none. (``ada`` stays None until ROADMAP M11.)
+        The optional slots follow the JAX manager's
+        ``_reconcile_optional_slots``. The EMA slot follows the checkpoint
+        both ways: a state built without EMA gets the saved EMA parameters,
+        and one built with EMA loses its slot when the checkpoint has none.
+        A saved ``ada`` is loaded whatever the state was built with; a
+        checkpoint without one (written with ADA off, or before ADA was
+        ported) leaves the state's own, so an ADA run resumed from it starts
+        its controller afresh at the caller's ``p``.
         """
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -81,6 +86,8 @@ class CheckpointManager:
             net.opt.load_state_dict(opt)
         state.step = int(blob["step"])
         state.ema_params = blob["ema_params"]
+        if blob.get("ada") is not None:
+            state.ada = blob["ada"]
         return state
 
     def latest_step(self) -> Optional[int]:

@@ -12,6 +12,10 @@ pixel with no dictionary loop in Python.
 
 Colour error: none for 1-channel frames; for RGB each channel is rounded to
 the nearest multiple of 51, at most 25 levels off.
+
+``read_gif`` decodes a GIF (any LZW stream, global or local palettes, frames
+at an offset; not interlaced ones) back to RGB frames, so that a written
+grid can be checked where no imaging library is installed.
 """
 from __future__ import annotations
 
@@ -122,3 +126,96 @@ def write_gif(path: str, frames: np.ndarray, *, fps: int = 8):
 def save_sample_grid(path: str, videos, n: Optional[int] = None, fps: int = 8):
     """One call matching the reference genSamples layout: 8x8 grid GIF."""
     return write_gif(path, video_grid(np.asarray(videos), n), fps=fps)
+
+
+def _lzw_decode(data: bytes, min_size: int, count: int) -> np.ndarray:
+    """A GIF LZW code stream (codes LSB first, widening from ``min_size +
+    1`` bits up to 12) -> its first ``count`` palette indices."""
+    clear, end = 1 << min_size, (1 << min_size) + 1
+    table = [bytes([i]) for i in range(clear)] + [b"", b""]
+    size, pos, prev = min_size + 1, 0, None
+    out = bytearray()
+    padded = data + b"\0\0\0"
+    while pos + size <= 8 * len(data):
+        word = int.from_bytes(padded[pos >> 3:(pos >> 3) + 3], "little")
+        code = (word >> (pos & 7)) & ((1 << size) - 1)
+        pos += size
+        if code == clear:
+            del table[clear + 2:]
+            size, prev = min_size + 1, None
+            continue
+        if code == end:
+            break
+        if code < len(table):
+            entry = table[code]
+            if prev is not None:
+                table.append(prev + entry[:1])
+        elif code == len(table) and prev is not None:
+            entry = prev + prev[:1]
+            table.append(entry)
+        else:
+            raise ValueError(f"bad LZW code {code}")
+        out += entry
+        prev = entry
+        if len(table) == 1 << size and size < 12:
+            size += 1
+    if len(out) < count:
+        raise ValueError(f"LZW stream holds {len(out)} pixels, not {count}")
+    return np.frombuffer(bytes(out[:count]), np.uint8)
+
+
+def read_gif(path: str) -> np.ndarray:
+    """A GIF at ``path`` -> its frames ``(T, H, W, 3)`` uint8 RGB, each drawn
+    over the one before (a graphic control block's transparent index keeps
+    the pixel below)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:6] not in (b"GIF87a", b"GIF89a"):
+        raise ValueError(f"{path}: not a GIF")
+    w, h, flags = struct.unpack("<HHB", data[6:11])
+    pos, palette = 13, None
+
+    def table(flags, pos):
+        n = 2 << (flags & 7)
+        return (np.frombuffer(data[pos:pos + 3 * n], np.uint8).reshape(n, 3),
+                pos + 3 * n)
+
+    def sub_blocks(pos):
+        chunks = []
+        while data[pos]:
+            chunks.append(data[pos + 1:pos + 1 + data[pos]])
+            pos += 1 + data[pos]
+        return b"".join(chunks), pos + 1
+
+    if flags & 0x80:
+        palette, pos = table(flags, pos)
+    frames, canvas = [], np.zeros((h, w, 3), np.uint8)
+    transparent = None
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:                      # an extension
+            body, end = sub_blocks(pos + 2)
+            if data[pos + 1] == 0xF9:              # graphic control
+                transparent = body[3] if body[0] & 1 else None
+            pos = end
+        elif data[pos] == 0x2C:                    # an image
+            x, y, fw, fh, fl = struct.unpack("<HHHHB", data[pos + 1:pos + 10])
+            pos += 10
+            pal = palette
+            if fl & 0x80:
+                pal, pos = table(fl, pos)
+            if fl & 0x40:
+                raise ValueError(f"{path}: interlaced frames are not read")
+            min_size = data[pos]
+            stream, pos = sub_blocks(pos + 1)
+            idx = _lzw_decode(stream, min_size, fw * fh)
+            idx = idx.reshape(fh, fw)
+            canvas = canvas.copy()
+            region = canvas[y:y + fh, x:x + fw]
+            drawn = (np.ones(idx.shape, bool) if transparent is None
+                     else idx != transparent)
+            region[drawn] = pal[idx[drawn]]
+            frames.append(canvas)
+            transparent = None
+        else:
+            raise ValueError(f"{path}: unknown block {data[pos]:#x}")
+    return np.stack(frames)

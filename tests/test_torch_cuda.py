@@ -23,7 +23,10 @@ float32 on the card against float64 on the CPU, at 1e-4. The spectral-norm
 critics and the gradient penalty (no kernel of their own:
 cuDNN's convolutions and their double backward) are held, float32 on the
 card with TF32 off and cuDNN deterministic, against float64 on the CPU at
-1e-4 of each tensor's largest value.
+1e-4 of each tensor's largest value. DiffAugment (plain tensor code, no
+kernel) is held against its CPU run given the same draws: translation and
+cutout exactly, the colour ops at 1e-6; an ADA step as the training step
+above.
 """
 import copy
 import os
@@ -450,3 +453,93 @@ def test_the_new_motions_launch_no_kernel(cuda, name):
     torch.cuda.synchronize()
     assert fused_rk4.launches == 0 and fused_gru.launches == 0
     assert all(torch.isfinite(v) for v in metrics.values())
+
+
+DIFFAUG = "color,translation,cutout"
+
+
+@pytest.mark.parametrize("p", [None, 0.0, 0.5, 1.0])
+@pytest.mark.parametrize("op", ["brightness", "saturation", "contrast",
+                                "translation", "cutout", DIFFAUG])
+def test_diff_augment_on_the_card_matches_the_cpu(cuda, op, p):
+    """DiffAugment given the same draws (made on the CPU) on a batch in
+    [-1, 1), the range of the data and of the generator's tanh: translation
+    and cutout exact, the colour ops within 1e-6 (a few float32 ulps of the
+    values, which the colour ops take up to |4|, with the means summed in
+    another order); ``p=1`` the ungated result bit for bit, ``p=0`` the
+    identity."""
+    from ganode_tpu_torch.train.diffaug import diff_augment, diffaug_draws
+
+    x = torch.rand((32, 16, 64, 64, 3), generator=torch.Generator()
+                   .manual_seed(0)) * 2 - 1
+    draws = diffaug_draws(op, x.shape, p is not None,
+                          torch.Generator().manual_seed(1))
+    pt = None if p is None else torch.tensor(p)
+    want = diff_augment(x, op, pt, draws=draws)
+    got = diff_augment(x.to(cuda), op, None if pt is None else pt.to(cuda),
+                       draws=draws)
+    assert got.device.type == "cuda"
+    if op in ("translation", "cutout"):
+        assert torch.equal(got.cpu(), want)
+    else:
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)
+    if p == 1.0:
+        assert torch.equal(got, diff_augment(x.to(cuda), op, draws=draws))
+    if p == 0.0:
+        assert torch.equal(got, x.to(cuda))
+
+
+def test_an_ada_step_on_the_card_matches_the_cpu_in_float64(cuda,
+                                                            monkeypatch):
+    """One ``mnist_ode`` step with DiffAugment, ADA and R1 (the rotated-MNIST
+    ADA runs' options) on the card and on the CPU in float64, from one state
+    carried across after a CPU step with ``p`` set to 0.5 and 0.3, and one
+    noise tape: losses, ``rt``, ``p`` and every parameter and statistic
+    within 1e-4."""
+    import ganode_tpu_torch.models.motion as motion_mod
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("mnist_ode", ngf=8, ndf=8, batch_size=4, diffaug=DIFFAUG,
+                     ada_target=0.6, ada_step=0.05, r1_weight=0.1)
+    g = torch.Generator().manual_seed(0)
+    images = torch.rand((2, 4, 28, 28, 1), generator=g) * 2 - 1
+    videos = torch.rand((2, 4, 16, 28, 28, 1), generator=g) * 2 - 1
+    tr_c = build_trainer(cfg, device="cpu")
+    st_c = tr_c.init_state()
+    tr_c.train_step(st_c, images, videos, noise=tr_c.noise_tape(
+        torch.Generator().manual_seed(10), "cpu"))
+
+    def cast(d, dtype):
+        return {k: cast(v, dtype) if isinstance(v, dict) else
+                v.to(dtype) if v.is_floating_point() else v
+                for k, v in d.items()}
+
+    runs = []
+    for device, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+        if dtype == torch.float64:  # the wrappers take float32 only
+            monkeypatch.setattr(motion_mod, "fused_rk4_motion",
+                                reference_rk4_motion)
+        tr = build_trainer(cfg, device=device)
+        st = tr.init_state()
+        for n in NETS:
+            getattr(tr, n).to(dtype=dtype).load_state_dict(
+                getattr(tr_c, n).state_dict())
+            getattr(st, n).opt.load_state_dict(
+                copy.deepcopy(getattr(st_c, n).opt.state_dict()))
+        st.ada = {"p_img": torch.tensor(0.5, device=device),
+                  "p_vid": torch.tensor(0.3, device=device)}
+        tape = [cast(d, dtype) for d in tr.noise_tape(
+            torch.Generator().manual_seed(20), device)]
+        metrics = tr.train_step(st, images.to(device, dtype),
+                                videos.to(device, dtype), noise=tape)
+        runs.append(({k: v.item() for k, v in metrics.items()},
+                     {f"{n}.{k}": v.detach().cpu().double() for n in NETS
+                      for k, v in getattr(tr, n).state_dict().items()}))
+    (got, got_sd), (want, want_sd) = runs
+    assert sorted(got) == sorted(want) and "ada_p_img" in want
+    for k in want:
+        assert abs(got[k] - want[k]) < 1e-4, (k, got[k], want[k])
+    for k, v in want_sd.items():
+        torch.testing.assert_close(got_sd[k], v, rtol=0, atol=1e-4,
+                                   msg=lambda m: f"{k}: {m}")

@@ -164,7 +164,7 @@ def test_d_update_matches_jax(jax_run):
     assert_close_tree(bridge.torch_to_jax(grads)["params"], want_grads, RTOL,
                       FLOOR, "d grads")
     mod.load_state_dict(stats)
-    got_loss = tr._d_update(state.dis_img, real_t, fake_t, None)
+    got_loss, _ = tr._d_update(state.dis_img, real_t, fake_t, None)
     np.testing.assert_allclose(float(got_loss), want_loss, rtol=LOSS_RTOL)
     got = bridge.torch_gan_state_to_jax(state)["dis_img"]
     _assert_net(got, _net_dict(want_net), "dis_img")

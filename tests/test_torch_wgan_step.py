@@ -57,8 +57,8 @@ from ganode_tpu_torch.models import (SNImageDiscriminator,
 from ganode_tpu_torch.train import GANTrainer
 from ganode_tpu_torch.utils.checkpoint import CheckpointManager
 from ganode_tpu_torch.utils.config import get_config
-from torch_parity import (NoiseRecorder, assert_bitwise, assert_close_tree,
-                          np_tree, to_torch, uniform)
+from torch_parity import (EpsRecorder, NoiseRecorder, assert_bitwise,
+                          assert_close_tree, np_tree, to_torch, uniform)
 
 CFG = get_config("ucf_wgan_gp_128")
 B, T, NGF, NDF, DZC, DZM, S = 2, 16, 4, 4, 10, 4, 128
@@ -95,27 +95,11 @@ def _batches(seed):
     return uniform(rng, 1, B, S, S, 3), uniform(rng, 1, B, T, S, S, 3)
 
 
-class _EpsRecorder:
-    """Records each gradient penalty's interpolation weights, drawn from the
-    penalty's key as ``losses.gradient_penalty`` draws them."""
-
-    def __init__(self):
-        self.log = []
-        self.orig = jax_gan.gradient_penalty
-
-    def __call__(self, d_apply, real, fake, key, **kw):
-        eps = jax.random.uniform(key, (real.shape[0],) + (1,) * (real.ndim - 1),
-                                 dtype=real.dtype)
-        jax.debug.callback(lambda a: self.log.append(np.asarray(a)), eps,
-                           ordered=True)
-        return self.orig(d_apply, real, fake, key, **kw)
-
-
 def _recorded_steps(tr, state0, batches):
     """Two JAX steps through one compiled function with the recorders on:
     the first makes the carried-across state, the second is the step under
     test -> (state1, state2, metrics2, its noise tape)."""
-    eps, rec = _EpsRecorder(), NoiseRecorder()
+    eps, rec = EpsRecorder(), NoiseRecorder()
     step = jax.jit(tr.train_step)
     with mock.patch.object(jax_gan, "gradient_penalty", eps), \
             nn.intercept_methods(rec), jax.enable_x64(False):

@@ -13,9 +13,12 @@ What JAX draws inside a function rather than a module is recorded by
 wrapping that function for the test (``NoiseRecorder.patch_solvers``, a
 pytest ``MonkeyPatch``; the JAX package is not edited): the SDE solvers'
 Brownian key, turned into the increments ``dW`` by ``jax_increments``, and
-the CDE path handed to ``hermite_cubic_coefficients``. Inside ``jit`` and
-``value_and_grad`` those values are tracers, so they are read with ordered
-``jax.debug.callback``s, which run in program order.
+the CDE path handed to ``hermite_cubic_coefficients``; and
+``AugRecorder`` records the key each ``diff_augment`` call of the JAX trainer
+received, which ``jax_aug_draws`` turns into the port's draws, and
+``EpsRecorder`` a gradient penalty's interpolation weights. Inside ``jit``
+and ``value_and_grad`` those values are tracers, so they are read with
+ordered ``jax.debug.callback``s, which run in program order.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch
 from flax import linen as nn
 
 import ganode_tpu.ode as jax_ode
+import ganode_tpu.train.gan as jax_gan
 from ganode_tpu.models.mocogan import DCGANTrunk64, DCGANTrunk128, MNISTTrunk28
 from ganode_tpu.models.motion import (MotionCDE, MotionMoEODE, MotionODE,
                                       MotionSDE)
@@ -167,9 +171,103 @@ def record_noise(fn, *args):
     return out, rec
 
 
+def jax_aug_draws(key, shape, ops, gated: bool) -> dict:
+    """The draws JAX's ``diff_augment(x, key, ops, p)`` makes for an ``x`` of
+    ``shape``, in the port's form (``ganode_tpu_torch.train.diffaug``):
+    op ``i`` from ``fold_in(key, i)``, its gate from ``fold_in(key, 1000 +
+    i)``, rebuilt with the ``jax.random`` calls of
+    ``ganode_tpu/train/diffaug.py`` (x64 off)."""
+    b, h, w = shape[0], shape[-3], shape[-2]
+    out = {}
+    with jax.enable_x64(False):
+        key = jnp.asarray(key)
+        for i, name in enumerate(ops):
+            k = jax.random.fold_in(key, i)
+            if name in ("brightness", "saturation", "contrast"):
+                draw = jax.random.uniform(k, (b,))
+            else:
+                ratio = 0.125 if name == "translation" else 0.5
+                mh, mw = max(int(h * ratio), 1), max(int(w * ratio), 1)
+                if name == "translation":
+                    lo, hi = (-mh, -mw), (mh + 1, mw + 1)
+                else:
+                    lo = (-(mh // 2), -(mw // 2))
+                    hi = (h - mh // 2 + 1, w - mw // 2 + 1)
+                kh, kw = jax.random.split(k)
+                draw = jnp.stack([jax.random.randint(kh, (b,), lo[0], hi[0]),
+                                  jax.random.randint(kw, (b,), lo[1], hi[1])])
+            out[f"{i}:{name}"] = np.asarray(draw)
+            if gated:
+                out[f"{i}:gate"] = np.asarray(jax.random.uniform(
+                    jax.random.fold_in(key, 1000 + i), (b,)))
+    return out
+
+
+class AugRecorder:
+    """Records, in program order, each call of the JAX trainer's
+    ``diff_augment`` (``ganode_tpu.train.gan.diff_augment``, wrapped with a
+    pytest ``MonkeyPatch``): its key, with the batch's shape, the ops and
+    whether it was gated."""
+
+    def __init__(self):
+        self.log = []
+
+    def patch(self, mp: pytest.MonkeyPatch):
+        orig = jax_gan.diff_augment
+
+        def recorded(x, key, policy, p=None):
+            extra = (x.shape, tuple(policy), p is not None)
+            jax.debug.callback(
+                lambda k: self.log.append((np.asarray(k), extra)), key,
+                ordered=True)
+            return orig(x, key, policy, p)
+        mp.setattr(jax_gan, "diff_augment", recorded)
+
+    def draws(self):
+        """The recorded calls' draws, in order (``jax_aug_draws``)."""
+        return [jax_aug_draws(k, *extra) for k, extra in self.log]
+
+    def attach(self, tape, d_iters: int):
+        """Add the draws to a step's noise tape (``NoiseRecorder.samples``)
+        as the port's trainer takes them: ``aug_real`` and ``aug_fake`` to
+        each D iteration's sample, ``aug`` to the G update's video, then
+        image."""
+        draws = self.draws()
+        assert len(draws) == len(tape) + 2 * d_iters, len(draws)
+        it = iter(draws)
+        for i, d in enumerate(tape):
+            if i < 2 * d_iters:
+                d["aug_real"], d["aug_fake"] = next(it), next(it)
+            else:
+                d["aug"] = next(it)
+        return tape
+
+
+class EpsRecorder:
+    """Records each gradient penalty's interpolation weights, drawn from the
+    penalty's key as ``losses.gradient_penalty`` draws them; it stands in
+    for ``ganode_tpu.train.gan.gradient_penalty`` (``mock.patch.object``)."""
+
+    def __init__(self):
+        self.log = []
+        self.orig = jax_gan.gradient_penalty
+
+    def __call__(self, d_apply, real, fake, key, **kw):
+        eps = jax.random.uniform(key, (real.shape[0],) + (1,) * (real.ndim - 1),
+                                 dtype=real.dtype)
+        jax.debug.callback(lambda a: self.log.append(np.asarray(a)), eps,
+                           ordered=True)
+        return self.orig(d_apply, real, fake, key, **kw)
+
+
 def to_torch(noise, device="cpu"):
-    return [{k: torch.from_numpy(v).to(device) for k, v in d.items()}
-            for d in noise]
+    """Noise dicts of numpy arrays (the augmentation's draws nested) ->
+    tensors on ``device``."""
+    def conv(d):
+        return {k: conv(v) if isinstance(v, dict)
+                else torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                for k, v in d.items()}
+    return [conv(d) for d in noise]
 
 
 def assert_close_tree(got, want, rtol, atol_frac, path=""):
@@ -189,7 +287,7 @@ def assert_close_tree(got, want, rtol, atol_frac, path=""):
 
 
 def flat_state(state):
-    """Every tensor of a state, by name: modules, Adam state, EMA."""
+    """Every tensor of a state, by name: modules, Adam state, EMA, ADA."""
     out = {"step": torch.tensor(state.step)}
     for name in ("gen", "dis_img", "dis_vid"):
         net = getattr(state, name)
@@ -199,6 +297,8 @@ def flat_state(state):
             out.update({f"{name}.adam.{names[p]}.{k}": v for k, v in s.items()})
     for k, v in (state.ema_params or {}).items():
         out[f"ema.{k}"] = v
+    for k, v in (state.ada or {}).items():
+        out[f"ada.{k}"] = v
     return out
 
 
