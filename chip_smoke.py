@@ -134,9 +134,32 @@ printing one line before the next starts:
 31. times what the discriminators' ``leaky_relu`` with flax's derivative at
     0 (``nn/layers.py``) costs against ``F.leaky_relu``: the
     ``ucf_ode`` (TF32 on) and ``ucf_wgan_gp_128`` steps in turns (flax,
-    fused, fused, flax) in this process.
+    fused, fused, flax) in this process;
+32. for ``ucf_gres`` and then ``ucf_odegres`` (the GResBlock trunks,
+    ``nn/gresblock.py``: plain ``F.conv2d``, as the JAX package's are plain
+    XLA), trains at full width (B=32, T=16, 64x64x3, ngf = ndf = 64, SN
+    critics, hinge, d_iters 2, rk4 motion), cuDNN TF32 on: 1 warm-up + 3
+    timed steps; ms/step, ms per phase, peak memory, TFLOP per step counted
+    from the shapes and TFLOP/s; requires finite losses, K1 +6 per step and
+    K2 +0, the generator's blocks advancing their ``u`` (``u0``/``u1``)
+    2 * d_iters + 2 times per step and each critic 2 * d_iters + 1, every
+    ``u`` of norm 1 +- 1e-5 and moved;
+33. takes one reduced-width step of it (ngf = ndf = 8, B = 4, T = 16,
+    d_iters 2) on the card and on the CPU in float64, as phase 10, with the
+    card in float64 (the plain motion): losses, parameters, statistics,
+    ``u``/``u0``/``u1`` and Adam moments within 1e-4; and with the card in
+    float32 against the same float64 step, by fixed bars per part of each
+    net (``F32_RTOL``, ``F32_FLOOR``; the Adam moments and parameters more,
+    for the ReLU inputs that change sign between float32 and float64 and
+    Adam's steps on exactly-zero gradients: ``F32_MOMENTS``, 2 lr);
+34. serves it at full width: ``sample_videos(64)`` through
+    ``GeneratorSession`` (K1 +1, finite, in [-1, 1]), the videos against
+    the same noise decoded with the plain rk4 motion, all 1,024 frames in
+    one trunk call as the sampler decodes them (the ODE field normalises by
+    the call's batch statistics) < 1e-4 with TF32 off; ms per call and the
+    trunk alone with TF32 on, peak memory.
 
-Float32, except phase 20; each of phases 21-31 prints its seconds. Matrix
+Float32, except phase 20; each of phases 21-34 prints its seconds. Matrix
 products run in full float32 (``torch.backends.cuda.matmul.allow_tf32 =
 False``); the correctness checks also turn TF32 off for cuDNN's
 convolutions, and the serving and training times are taken with cuDNN's
@@ -216,7 +239,8 @@ TOL_U_NORM = 1e-5
 # solver's own tolerance, atol + rtol |y|; the adjoint's gradients, each
 # tensor's max |diff| over its max |value|, within 10 rtol.
 TOL_DOPRI_GRAD = 1e-4
-FRAME_SIZE = {"mnist28": 28, "dcgan64": 64, "dcgan128": 128}
+FRAME_SIZE = {"mnist28": 28, "dcgan64": 64, "dcgan128": 128, "gres64": 64,
+              "odegres64": 64}
 REPO = os.path.dirname(os.path.abspath(__file__))
 # Deterministic cuBLAS: must be in the environment before cuBLAS starts.
 CUBLAS_DETERMINISTIC = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
@@ -342,14 +366,18 @@ def cast_noise(noise: dict, dtype) -> dict:
             for k, v in noise.items()}
 
 
-def card_vs_cpu_step(dev, cfg_r, ada=None):
+def card_vs_cpu_step(dev, cfg_r, ada=None, card_dtype=None, detail=False):
     """One ``train_step`` of the reduced-width config ``cfg_r`` from one
     state and one noise tape, on the card in float32 and on the CPU in
     float64 (the plain motion) and in float32 -> (the card's max |loss diff|
     (and ADA metrics') and max |diff| over every net's parameters,
     statistics (BatchNorm's, spectral norm's ``u``) and Adam moments from
     float64, the same two for the CPU's float32, tensors compared). ``ada``
-    sets the carried state's ADA probabilities.
+    sets the carried state's ADA probabilities; ``card_dtype=torch.float64``
+    runs the card's step in float64 (the plain motion, as the CPU's);
+    ``detail`` also returns the card's and the float64 reference's tensors
+    by name (``"<net>.<buffer or parameter>"``, ``"<net>.adam.<parameter>.
+    exp_avg"``...).
 
     The state is carried across after one CPU step: Adam's first step from
     zero moments is lr * sign(g), which turns the rounding of a near-zero
@@ -395,11 +423,15 @@ def card_vs_cpu_step(dev, cfg_r, ada=None):
                     out[f"{n}.adam.{names[p]}.{m}"] = a[m].cpu().double()
         return {k: v.item() for k, v in metrics.items()}, out
 
-    m_card, s_card = take_step(dev, torch.float32)
+    card_dtype = card_dtype or torch.float32
+    if card_dtype == torch.float32:
+        m_card, s_card = take_step(dev, card_dtype)
     m_cpu, s_cpu = take_step("cpu", torch.float32)
     motion_mod.fused_rk4_motion = reference_rk4_motion  # float32 only
     try:
         m_ref, s_ref = take_step("cpu", torch.float64)
+        if card_dtype == torch.float64:
+            m_card, s_card = take_step(dev, card_dtype)
     finally:
         motion_mod.fused_rk4_motion = fused_rk4_motion
 
@@ -407,7 +439,8 @@ def card_vs_cpu_step(dev, cfg_r, ada=None):
         return (max(abs(m[k] - m_ref[k]) for k in m_ref),
                 max((sd[k] - v).abs().max().item() for k, v in s_ref.items()))
 
-    return (*errs(m_card, s_card), *errs(m_cpu, s_cpu), len(s_ref))
+    out = (*errs(m_card, s_card), *errs(m_cpu, s_cpu), len(s_ref))
+    return (*out, s_card, s_ref) if detail else out
 
 
 def train_phases(dev, card, events_ms) -> dict:
@@ -1750,6 +1783,251 @@ def leaky_relu_phase(dev, card) -> dict:
     return out
 
 
+GRES = ("ucf_gres", "ucf_odegres")
+GRES_STEPS = 3    # timed full-width steps after one warm-up (phase 32)
+# The float32 GRes step against float64 (phase 33), fixed bars per part of
+# each net (its parameters, its buffers, each Adam moment): |diff| <=
+# F32_RTOL |ref| + F32_FLOOR * the part's largest magnitude, as the CPU step
+# tests hold float64; the Adam moments get F32_MOMENTS * that magnitude and
+# the parameters 2 * lr more. Measured on the CPU over 13 seeds at the
+# tests' width (tests/gres_float32_drift.py, PERF.md §6): 1-9 of the
+# generator trunk's ReLU inputs per call change sign between float32 and
+# float64, which moves the generator's Adam moments by up to 3.8e-2 of the
+# part's largest magnitude in JAX's own float32 step (1.9e-2 in the
+# port's) and the critics' by up to 3.4e-3 (2.5e-3); Adam turns the
+# rounding noise of exactly-zero gradients (conv biases that feed a
+# batch-statistics norm) into parameter steps of up to lr either way.
+F32_RTOL, F32_FLOOR, F32_MOMENTS = 1e-4, 1e-5, 5e-2
+
+
+def spectral_buffers(module) -> dict:
+    """Every power-iteration state of ``module`` by name: each ``SNConv``'s
+    ``u`` and each ODE block's ``u0``/``u1``."""
+    return {k: v for k, v in module.named_buffers()
+            if k.rsplit(".", 1)[-1] in ("u", "u0", "u1")}
+
+
+def f32_step_misses(s_card, s_ref, params, lr) -> tuple:
+    """The float32 card step's tensors against the float64 reference's, by
+    the fixed bars above (``params``: the names of the nets' parameters) ->
+    (the worst |diff| over its bar per part, the tensors over their bar)."""
+    def part(key):
+        net, rest = key.split(".", 1)
+        if rest.startswith("adam."):
+            return net, rest.rsplit(".", 1)[1]
+        return net, "params" if key in params else "buffers"
+
+    parts = {}
+    for k in s_ref:
+        parts.setdefault(part(k), []).append(k)
+    worst, misses = {}, []
+    for (net, kind), keys in parts.items():
+        scale = max(s_ref[k].abs().max().item() for k in keys)
+        atol = F32_FLOOR * scale
+        if kind.startswith("exp_avg"):
+            atol = F32_MOMENTS * scale
+        elif kind == "params":
+            atol += 2 * lr
+        ratio = 0.0
+        for k in keys:
+            over = ((s_card[k] - s_ref[k]).abs()
+                    / (F32_RTOL * s_ref[k].abs() + atol)).max().item()
+            ratio = max(ratio, over)
+            if over > 1:
+                misses.append((k, over))
+        worst[f"{net}.{kind}"] = ratio
+    return worst, misses
+
+
+def gres_phases(dev, card, events_ms) -> dict:
+    """Phases 32-34 (module docstring): the GResBlock trunks; returns the
+    record's entry."""
+    import torch
+
+    from ganode_tpu_torch.compat import GeneratorSession
+    from ganode_tpu_torch.models import generator_for_config
+    from ganode_tpu_torch.ops import fused_rk4, reference_rk4_motion
+    from ganode_tpu_torch.train import build_trainer
+    from ganode_tpu_torch.utils.config import get_config
+
+    out = {}
+    for name in GRES:
+        cfg = get_config(name)
+        d = cfg.d_iters
+        t0 = time.perf_counter()
+        phase(f"train {name} at full width ({cfg.trunk}, ngf=ndf={cfg.ngf}, "
+              f"B={cfg.batch_size}, T={cfg.video_length}, 64x64x3, SN critics "
+              f"ksize {cfg.video_disc_ksize}, {cfg.loss}, d_iters {d}): 1 "
+              f"warm-up + {GRES_STEPS} timed steps, cuDNN TF32 on")
+        torch.backends.cudnn.allow_tf32 = True
+        tr = build_trainer(cfg, device=dev)
+        state = tr.init_state()
+        gt = torch.Generator(dev).manual_seed(0)
+        images, videos = random_batches(cfg, dev, 0)
+        # u advances: every train-mode forward of a generator block (its
+        # SNConvs' u, or its u0/u1 and proj_down's u) and of a critic's
+        # first SNConv
+        advances = {"gen": 0, "dis_img": 0, "dis_vid": 0}
+
+        def count(key, block=True):
+            def hook(module, args, kwargs):
+                advances[key] += (module.training if block
+                                  else bool(kwargs["update_stats"]))
+            return hook
+
+        hooks = [tr.gen.main.block_0.register_forward_pre_hook(
+            count("gen"), with_kwargs=True)]
+        hooks += [getattr(tr, k).SNConv_0.register_forward_pre_hook(
+            count(k, False), with_kwargs=True) for k in ("dis_img", "dis_vid")]
+        u_start = {k: {n: u.clone() for n, u in spectral_buffers(
+            getattr(tr, k)).items()} for k in advances}
+        ms, mem, losses, k1, k2, _ = timed_steps(
+            tr, state, images, videos, gt, 1, GRES_STEPS)
+        # the warm-up step's advances are counted too: GRES_STEPS + 1 steps
+        per_step = {k: v / (GRES_STEPS + 1) for k, v in advances.items()}
+        for h in hooks:
+            h.remove()
+        require(k1 == 6 * GRES_STEPS and k2 == 0,
+                f"{name}: K1 {k1} / K2 {k2} in {GRES_STEPS} steps, want K1 "
+                f"{6 * GRES_STEPS} (rk4 motion) and K2 0")
+        require(all(map(math.isfinite, losses.values())), f"losses {losses}")
+        want_adv = {"gen": 2 * d + 2, "dis_img": 2 * d + 1,
+                    "dis_vid": 2 * d + 1}
+        require(per_step == want_adv,
+                f"{name}: u advanced {per_step} times per step, want "
+                f"{want_adv}")
+        norms = {f"{k}.{n}": u.norm().item() for k in advances
+                 for n, u in spectral_buffers(getattr(tr, k)).items()}
+        require(all(abs(v - 1.0) <= TOL_U_NORM for v in norms.values()),
+                f"{name}: u norms {norms}")
+        moved = [f"{k}.{n}" for k in advances
+                 for n, u in spectral_buffers(getattr(tr, k)).items()
+                 if u.numel() > 1 and torch.equal(u, u_start[k][n])]
+        require(not moved, f"{name}: u did not move: {moved}")
+        phases = phase_ms(tr, state, images, videos, gt, 1)
+        flops = step_flops(cfg)
+        rec = {"config": name, "batch": cfg.batch_size,
+               "frames": cfg.video_length, "d_iters": d, "card": card,
+               "ms_per_step": ms, "clips_per_s": cfg.batch_size * 1e3 / ms,
+               "phase_ms": phases, "max_memory_bytes": mem,
+               "losses": losses, "flops": flops,
+               "k1_launches_per_step": k1 / GRES_STEPS,
+               "k2_launches": k2, "u_advances_per_step": per_step,
+               "u_norm_max_dev": max(abs(v - 1) for v in norms.values())}
+        say(f"{name} train_step (cuDNN TF32 on): {ms:.3f} ms/step, "
+            f"{cfg.batch_size * 1e3 / ms:.2f} clips/s; phases per step: "
+            f"D_img {phases['d_img']:.3f} ms, D_vid {phases['d_vid']:.3f} "
+            f"ms, G {phases['g']:.3f} ms; peak memory {mem / 2 ** 30:.2f} "
+            f"GiB; {flops['step'] / 1e12:.2f} TFLOP per step counted "
+            f"from the shapes (samples {d * flops['samples'] / 1e12:.2f}, G "
+            f"update {flops['g_update'] / 1e12:.2f}), so "
+            f"{flops['step'] / ms / 1e9:.1f} TFLOP/s over the step and "
+            f"{flops['g_update'] / phases['g'] / 1e9:.1f} in G; K1 "
+            f"{k1 / GRES_STEPS:g} per step, K2 {k2}; u advances per step "
+            f"{per_step}, norms within {rec['u_norm_max_dev']:.1e} of 1; "
+            f"losses {losses}; {time.perf_counter() - t0:.1f} s; {card}")
+        del tr, state, images, videos
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        phase(f"one {name} step at reduced width (ngf=ndf=8, B=4, T=16, "
+              "d_iters 2): card vs CPU float64")
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        cfg_r = get_config(name, ngf=8, ndf=8, batch_size=4, video_length=16,
+                           d_iters=2)
+        try:
+            errs = {dt: card_vs_cpu_step(dev, cfg_r, card_dtype=dt,
+                                         detail=True)
+                    for dt in (torch.float64, torch.float32)}
+        finally:
+            torch.backends.cudnn.deterministic = False
+        f64_loss, f64_nets, _, _, n_tensors, _, _ = errs[torch.float64]
+        (err_loss, err_nets, cpu_loss, cpu_nets, _, s_card,
+         s_ref) = errs[torch.float32]
+        tr_r = build_trainer(cfg_r, device="cpu")
+        params = {f"{n}.{k}" for n in ("gen", "dis_img", "dis_vid")
+                  for k, _ in getattr(tr_r, n).named_parameters()}
+        worst, misses = f32_step_misses(s_card, s_ref, params, cfg_r.lr)
+        say(f"{name} train_step vs the CPU's float64 step over {n_tensors} "
+            f"tensors (parameters, statistics, u/u0/u1, Adam moments), "
+            f"max|diff| of losses / tensors: the card in float64 "
+            f"{f64_loss:.3e} / {f64_nets:.3e} (tol {TOL_STEP}); the card in "
+            f"float32 (TF32 off, cuDNN deterministic) {err_loss:.3e} / "
+            f"{err_nets:.3e} (losses tol {TOL_STEP}; the CPU's float32 step "
+            f"{cpu_loss:.3e} / {cpu_nets:.3e}); the card's float32 worst "
+            f"|diff| over its fixed bar per part "
+            f"{ {k: float(f'{v:.3g}') for k, v in worst.items()} } (<= 1); "
+            f"{time.perf_counter() - t0:.1f} s")
+        require(f64_loss < TOL_STEP and f64_nets < TOL_STEP,
+                f"{name} card (float64) vs CPU: losses {f64_loss}, nets "
+                f"{f64_nets}")
+        require(err_loss < TOL_STEP and not misses,
+                f"{name} card (float32) vs CPU float64: losses {err_loss}, "
+                f"tensors over their bar {misses[:8]}")
+        rec["card_vs_cpu_max_abs"] = {"card_float64_losses": f64_loss,
+                                      "card_float64_nets": f64_nets,
+                                      "losses": err_loss, "nets": err_nets,
+                                      "cpu_float32_losses": cpu_loss,
+                                      "cpu_float32_nets": cpu_nets,
+                                      "float32_over_bar_by_part": worst}
+
+        t0 = time.perf_counter()
+        phase(f"serve {name} at full width: sample_videos(64) through "
+              "GeneratorSession, against the plain rk4 motion at the same n")
+        sess = GeneratorSession(generator_for_config(cfg, device=dev), seed=0,
+                                device=dev)
+        gen = sess.gen
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        videos, _ = sess.sample_videos(64)
+        torch.cuda.synchronize()
+        serve_k1, serve_mem = fused_rk4.launches, torch.cuda.max_memory_allocated()
+        require(serve_k1 == 1, f"{name}: {serve_k1} K1 launches serving")
+        require(tuple(videos.shape) == (64, 3, 16, 64, 64)
+                and bool(torch.isfinite(videos).all())
+                and videos.abs().max().item() <= 1.0,
+                f"{name}: served {tuple(videos.shape)}, not finite in [-1, 1]")
+        torch.backends.cudnn.allow_tf32 = False
+        g = torch.Generator().manual_seed(5)
+        zc = torch.randn((64, cfg.dim_z_content), generator=g).to(dev)
+        x0 = torch.randn((64, cfg.dim_z_motion), generator=g).to(dev)
+        with torch.no_grad():
+            v_k, _ = gen.sample_videos(64, z_content=zc, x0=x0)
+            m = gen.motion
+            l0, l1 = m.ode_fn.Dense_0, m.ode_fn.Dense_1
+            zs = reference_rk4_motion(
+                m.WarmupMLP_0(x0), l0.weight.t(), l0.bias, l1.weight.t(),
+                l1.bias, torch.linspace(0.0, 1.0, 16)).transpose(0, 1)
+            # every frame of the 64 clips in one trunk call, as the sampler
+            z = torch.cat([zc.repeat_interleave(16, 0),
+                           zs.reshape(64 * 16, -1)], 1)
+            v_p = gen.main(z).reshape(64, 16, 3, 64, 64).permute(
+                0, 1, 3, 4, 2)
+        err = (v_k - v_p).abs().max().item()
+        require(err < TOL_VIDEO, f"{name}: served videos vs the plain motion "
+                f"{err}")
+        torch.backends.cudnn.allow_tf32 = True
+        n = 5 if name == "ucf_gres" else 3
+        serve_ms = events_ms(lambda: sess.sample_videos(64), n)
+        with torch.no_grad():
+            trunk_ms = events_ms(lambda: gen.main(z), n)
+        say(f"{name} sample_videos(64): {serve_ms:.3f} ms per call, "
+            f"{64e3 / serve_ms:.1f} clips/s, the trunk alone (1024 frames) "
+            f"{trunk_ms:.3f} ms (cuDNN TF32 on); peak memory "
+            f"{serve_mem / 2 ** 30:.2f} GiB; K1 {serve_k1} per call; kernel "
+            f"path vs plain motion max|diff| {err:.3e} (tol {TOL_VIDEO}, "
+            f"TF32 off); {time.perf_counter() - t0:.1f} s; {card}")
+        rec["serving"] = {"ms": serve_ms, "trunk_ms": trunk_ms,
+                          "max_memory_bytes": serve_mem,
+                          "k1_launches": serve_k1,
+                          "vs_plain_motion_max_abs": err}
+        out[name] = rec
+        del sess, gen, videos, v_k, v_p, z, zs
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     faulthandler.enable()
     phase("watchdog armed: %d s per phase" % WATCHDOG_S)
@@ -2060,6 +2338,7 @@ def main() -> int:
     training["diffaug"] = diffaug_phases(dev, card, events_ms,
                                          wgan["ms_per_step"])
     training["leaky_relu_cost_ms"] = leaky_relu_phase(dev, card)
+    training["gres"] = gres_phases(dev, card, events_ms)
 
     worst = lambda kernel: max(e for (k, _), e in errs.items() if k == kernel)
     record = {"kernels": [
@@ -2116,6 +2395,13 @@ def main() -> int:
     record["kernels"][1]["launches_by_path"][
         f"train_step mnist_ode + diffaug + ADA + R1, {2 * DIFFAUG_STEPS} "
         "steps"] = aug["mnist_ode_ada"]["ada"]["k2_launches"]
+    # the GResBlock trunks keep the rk4 motion: K1 as on ucf_ode, K2 none
+    for name, rec in training["gres"].items():
+        k1_paths[f"train_step {name}, per step"] = rec["k1_launches_per_step"]
+        k1_paths[f"serve {name} sample_videos(64)"] = \
+            rec["serving"]["k1_launches"]
+        record["kernels"][1]["launches_by_path"][
+            f"train_step {name}, {GRES_STEPS} steps"] = rec["k2_launches"]
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,11 +20,16 @@ the other direction, in ``ganode_tpu/compat_torch.py``:
 * GRU ``wi``/``wh``/``bi``/``bh`` and the mixture-of-experts field's stacked
   ``expert_w1``/``expert_b1``/``expert_w2``/``expert_b2`` keep their names
   and layout; its ``gate`` is a Dense.
-* ``SNConv`` and ``SNDense`` kernels follow the conv and dense rules; their
-  ``spectral`` collection's ``u`` <-> the buffer ``u``.
+* ``SNConv`` (``proj_down`` included) and ``SNDense`` kernels follow the
+  conv and dense rules; their ``spectral`` collection's ``u`` <-> the
+  buffer ``u``.
+* The continuous-depth block's field (``Conv2dODEField``): ``k0``/``k1``
+  ``(3, 3, Ci, Co)`` <-> ``(Co, Ci, 3, 3)`` (correlations both: not
+  flipped); ``b0``, ``b1`` and ``embed_*`` keep their names and layout; the
+  block's ``spectral`` ``u0``/``u1`` <-> buffers of the same names.
 
 ``num_batches_tracked`` has no JAX counterpart: it is set to 0 on the way in
-and dropped on the way out.
+and dropped on the way out. Leaves cross as float32, float64 ones as float64.
 """
 from __future__ import annotations
 
@@ -34,16 +39,25 @@ import torch
 _PARAM_TO_TORCH = {"scale": "weight", "bias": "bias", "kernel": "weight",
                    "wi": "wi", "wh": "wh", "bi": "bi", "bh": "bh",
                    "expert_w1": "expert_w1", "expert_b1": "expert_b1",
-                   "expert_w2": "expert_w2", "expert_b2": "expert_b2"}
+                   "expert_w2": "expert_w2", "expert_b2": "expert_b2",
+                   "k0": "k0", "k1": "k1", "b0": "b0", "b1": "b1",
+                   "embed_gamma": "embed_gamma",
+                   "embed_gamma_b": "embed_gamma_b",
+                   "embed_beta": "embed_beta"}
+# the ODE field's raw HWIO kernels
+_FIELD_KERNELS = ("k0", "k1")
+_SPECTRAL = ("u", "u0", "u1")
 # modules whose 2-D kernel is a Dense's
 _DENSE = ("Dense", "SNDense", "gate")
 _STAT_TO_TORCH = {"mean": "running_mean", "var": "running_var"}
 
 
 def _is_conv(module: str, rank: int) -> bool:
-    """A forward convolution's kernel: 2-D or 3-D ``Conv`` or ``SNConv``,
-    or the 3-D ``FastGradConv3D``."""
-    return ((module.startswith(("Conv", "SNConv")) and rank in (4, 5))
+    """A forward convolution's kernel: 2-D or 3-D ``Conv`` or ``SNConv``
+    (the continuous-depth block's ``proj_down`` is one), or the 3-D
+    ``FastGradConv3D``."""
+    return ((module.startswith(("Conv", "SNConv", "proj_down"))
+             and rank in (4, 5))
             or (module.startswith("FastGradConv3D") and rank == 5))
 
 
@@ -69,6 +83,13 @@ def _kernel_from_torch(module: str, w: np.ndarray) -> np.ndarray:
                      f"{module!r}")
 
 
+def _real(a) -> np.ndarray:
+    """A leaf as float32, or as float64 where it is float64 (a float64
+    reference run's state crosses without rounding)."""
+    a = np.asarray(a)
+    return a.astype(np.float64 if a.dtype == np.float64 else np.float32)
+
+
 def _leaves(tree: dict, prefix=()):
     for name, sub in tree.items():
         if isinstance(sub, dict):
@@ -82,9 +103,11 @@ def jax_to_torch(variables: dict) -> dict:
     sd = {}
     for path, value in _leaves(variables.get("params", {})):
         *mods, leaf = path
-        a = np.asarray(value, np.float32)
+        a = _real(value)
         if leaf == "kernel":
             a = _kernel_to_torch(mods[-1], a)
+        elif leaf in _FIELD_KERNELS:
+            a = a.transpose(3, 2, 0, 1)
         elif leaf not in _PARAM_TO_TORCH:
             raise ValueError(f"unknown parameter {'/'.join(path)}")
         sd[".".join(mods + [_PARAM_TO_TORCH[leaf]])] = torch.tensor(a.copy())
@@ -93,13 +116,13 @@ def jax_to_torch(variables: dict) -> dict:
         if leaf not in _STAT_TO_TORCH:
             raise ValueError(f"unknown batch statistic {'/'.join(path)}")
         sd[".".join(mods + [_STAT_TO_TORCH[leaf]])] = torch.tensor(
-            np.asarray(value, np.float32))
+            _real(value))
         if leaf == "mean":
             sd[".".join(mods + ["num_batches_tracked"])] = torch.tensor(0)
     for path, value in _leaves(variables.get("spectral") or {}):
-        if path[-1] != "u":
+        if path[-1] not in _SPECTRAL:
             raise ValueError(f"unknown spectral variable {'/'.join(path)}")
-        sd[".".join(path)] = torch.tensor(np.asarray(value, np.float32))
+        sd[".".join(path)] = torch.tensor(_real(value))
     return sd
 
 
@@ -111,16 +134,19 @@ def torch_to_jax(state_dict: dict) -> dict:
         *mods, leaf = key.split(".")
         if leaf == "num_batches_tracked":
             continue
-        a = value.detach().cpu().numpy().astype(np.float32)
+        a = _real(value.detach().cpu().numpy())
         if leaf in stat_names:
             collection, name = "batch_stats", stat_names[leaf]
-        elif leaf == "u":
-            collection, name = "spectral", "u"
+        elif leaf in _SPECTRAL:
+            collection, name = "spectral", leaf
         elif leaf == "weight" and mods[-1].startswith("BatchNorm"):
             collection, name = "params", "scale"
         elif leaf == "weight":
             collection, name = "params", "kernel"
             a = _kernel_from_torch(mods[-1], a)
+        elif leaf in _FIELD_KERNELS:
+            collection, name = "params", leaf
+            a = a.transpose(2, 3, 1, 0)
         elif leaf in _PARAM_TO_TORCH.values():
             collection, name = "params", leaf
         else:
@@ -175,7 +201,7 @@ def _params_to_torch(tree: dict, module) -> dict:
     if sorted(sd) != sorted(named):
         raise ValueError(f"the tree's leaves {sorted(set(sd) ^ set(named))} "
                          "do not match the module's parameters")
-    return {k: sd[k].to(named[k].device) for k in named}
+    return {k: sd[k].to(named[k].device, named[k].dtype) for k in named}
 
 
 def gan_state_to_torch(jax_state, state) -> None:

@@ -13,6 +13,7 @@ from .mocogan import (
     DCGANTrunk64,
     DCGANTrunk128,
     FastGradConv3D,
+    GResTrunk64,
     ImageDiscriminator,
     MNISTTrunk28,
     PatchImageDiscriminator,
@@ -160,6 +161,7 @@ __all__ = [
     "DCGANTrunk128",
     "DCGANTrunk64",
     "FastGradConv3D",
+    "GResTrunk64",
     "ImageDiscriminator",
     "MNISTTrunk28",
     "MOTION_SAMPLERS",

@@ -16,8 +16,15 @@ Submodules carry the flax names (``ConvTranspose_0``, ``BatchNorm_0``,
 name. BatchNorm has flax's semantics (``nn.layers.BatchNorm``): train mode
 matches flax ``apply(train=True, mutable=["batch_stats"])``, running variance
 included. The spectral-norm critics keep their power-iteration state in
-``u`` buffers (``nn.spectral``). The gres64 and odegres64 trunks wait for
-ROADMAP M13.
+``u`` buffers (``nn.spectral``).
+
+Trunks: ``dcgan64``, ``dcgan128`` and ``mnist28`` are deconv pyramids;
+``gres64`` and ``odegres64`` (``GResTrunk64``) are the stage-1 GResBlock
+trunks, whose blocks (``nn.gresblock``) hold spectral-norm ``u`` state of
+their own, advanced by every train-mode sample, and whose continuous-depth
+form normalises inside its ODE field by the batch's statistics in eval mode
+too: a served frame depends on the frames decoded in the same call, as in
+JAX, so the samplers decode all frames of a call at once.
 
 Compute dtype (``dtype``, the JAX modules' ``dtype=``): given one
 (``torch.bfloat16`` for ``compute_dtype="bfloat16"``), the trunks and the
@@ -27,7 +34,8 @@ back; the parameters stay float32, and BatchNorm computes its statistics in
 float32 as flax does (``nn.layers.BatchNorm``). With none (``None``, the
 float32 configs) nothing is cast: the modules compute in their parameters'
 dtype, float32, or float64 for a float64 reference run. The spectral-norm
-critics take no dtype, as in JAX.
+critics and the GRes trunks take no dtype and run float32, as in JAX
+(``GResTrunk64`` never uses its ``dtype``).
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..nn.gresblock import GResBlock, ODEGResBlock
 from ..nn.layers import BatchNorm, Noise, leaky_relu
 from ..nn.spectral import SNConv
 from ..ops import conv3d_first
@@ -171,19 +180,69 @@ class MNISTTrunk28(_DeconvPyramid):
         return _back(torch.tanh(h[:, :, 2:-2, 2:-2]), self.dtype)  # 32 -> 28
 
 
+class GResTrunk64(nn.Module):
+    """z (B', dim_z) -> frames (B', n_channels, 64, 64) in [-1, 1]: the
+    DVD-GAN-class trunk from GResBlocks (``ganode_tpu/models/mocogan.py:
+    133``). ``Dense_0`` to a 4x4 seed of ngf*8 channels, four up-sampling
+    blocks ``block_0..3`` (ngf*8, 4, 2, 1 channels; conditioned on z
+    itself), ``BatchNorm_0``, ReLU, a 3x3 ``SNConv_0``, tanh.
+
+    ``continuous_depth`` makes each block an ``ODEGResBlock`` (rk4, in
+    ``ode_steps`` steps): ``odegres64``. ``dtype`` is taken and not used:
+    the blocks run in the parameters' dtype, float32, as in JAX. The ODE
+    blocks keep their solve's stages for autograd (``nn.gresblock``)."""
+
+    frame_size = 64
+
+    def __init__(self, n_channels: int, ngf: int = 64, dim_z: int = 66,
+                 dtype: Optional[torch.dtype] = None,
+                 continuous_depth: bool = False, ode_steps: int = 2):
+        super().__init__()
+        del dtype
+        self.ngf = ngf
+        self.Dense_0 = nn.Linear(dim_z, 4 * 4 * ngf * 8)
+        chans = (ngf * 8, ngf * 8, ngf * 4, ngf * 2, ngf)   # 4->8->...->64
+        for i in range(4):
+            block = (ODEGResBlock(chans[i], chans[i + 1], n_condition=dim_z,
+                                  num_steps=ode_steps)
+                     if continuous_depth else
+                     GResBlock(chans[i], chans[i + 1], n_condition=dim_z))
+            self.add_module(f"block_{i}", block)
+        self.BatchNorm_0 = _bn(ngf)
+        self.SNConv_0 = SNConv(ngf, n_channels, (3, 3), padding=1)
+
+    def init_parameters(self, generator: torch.Generator):
+        nn.init.normal_(self.Dense_0.weight, 0.0, 0.02, generator=generator)
+        nn.init.zeros_(self.Dense_0.bias)
+        for i in range(4):
+            getattr(self, f"block_{i}").init_parameters(generator)
+        self.BatchNorm_0.reset_parameters()
+        self.SNConv_0.init_parameters(generator)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        # the dense output is NHWC in JAX: (B', 4, 4, C), then NCHW here
+        h = self.Dense_0(z).view(z.shape[0], 4, 4, -1).permute(0, 3, 1, 2)
+        for i in range(4):
+            h = getattr(self, f"block_{i}")(h, z)
+        h = F.relu(self.BatchNorm_0(h))
+        return torch.tanh(self.SNConv_0(h, update_stats=self.training))
+
+
+def _odegres64(n_channels: int, ngf: int = 64, dim_z: int = 66,
+               dtype: Optional[torch.dtype] = None) -> GResTrunk64:
+    return GResTrunk64(n_channels, ngf, dim_z, dtype, continuous_depth=True)
+
+
 TRUNKS = {"dcgan64": DCGANTrunk64, "mnist28": MNISTTrunk28,
-          "dcgan128": DCGANTrunk128}
-TRUNKS_NOT_PORTED = {"gres64": "M13", "odegres64": "M13"}
+          "dcgan128": DCGANTrunk128, "gres64": GResTrunk64,
+          "odegres64": _odegres64}
 
 
 def make_trunk(name: str, n_channels: int, ngf: int, dim_z: int,
                dtype: Optional[torch.dtype] = None) -> nn.Module:
-    if name in TRUNKS_NOT_PORTED:
-        raise NotImplementedError(
-            f"the {name!r} trunk waits for ROADMAP {TRUNKS_NOT_PORTED[name]}")
     if name not in TRUNKS:
         raise ValueError(f"unknown trunk {name!r}; choose from "
-                         f"{sorted(TRUNKS) + sorted(TRUNKS_NOT_PORTED)}")
+                         f"{sorted(TRUNKS)}")
     return TRUNKS[name](n_channels, ngf, dim_z, dtype)
 
 

@@ -57,7 +57,9 @@ class BatchNorm(nn.Module):
 
     The keys are ``nn.BatchNorm2d``'s (``weight``, ``bias``, ``running_mean``,
     ``running_var``, ``num_batches_tracked``), so the bridge maps flax's
-    ``scale``/``bias``/``mean``/``var`` onto them as before.
+    ``scale``/``bias``/``mean``/``var`` onto them as before. ``affine=False``
+    is flax's ``use_scale=False, use_bias=False``: no ``weight`` or ``bias``,
+    the statistics only (``nn.norm.ConditionalNorm``).
 
     An input in a lower precision than the float32 parameters (a bfloat16
     compute dtype) is normalised as flax does under a half-precision
@@ -69,13 +71,17 @@ class BatchNorm(nn.Module):
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5,
-                 momentum: float = 0.1):
+                 momentum: float = 0.1, affine: bool = True):
         super().__init__()
         self.num_features = num_features
         self.eps = eps
         self.momentum = momentum
-        self.weight = nn.Parameter(torch.empty(num_features))
-        self.bias = nn.Parameter(torch.empty(num_features))
+        if affine:
+            self.weight = nn.Parameter(torch.empty(num_features))
+            self.bias = nn.Parameter(torch.empty(num_features))
+        else:
+            self.register_parameter("weight", None)
+            self.register_parameter("bias", None)
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked",
@@ -83,8 +89,9 @@ class BatchNorm(nn.Module):
 
     def reset_parameters(self):
         """flax's init: scale 1, bias 0, running mean 0 and variance 1."""
-        nn.init.ones_(self.weight)
-        nn.init.zeros_(self.bias)
+        if self.weight is not None:
+            nn.init.ones_(self.weight)
+            nn.init.zeros_(self.bias)
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
         self.num_batches_tracked.zero_()

@@ -18,6 +18,9 @@ abs on losses and parameters after a whole training step, card against CPU
 (every convolution sums in another order on each device). A resumed run must
 equal an uninterrupted one bit for bit, under deterministic algorithms; for
 cuBLAS those need ``CUBLAS_WORKSPACE_CONFIG``, set here before cuBLAS starts.
+The GResBlock trunks (plain convolutions, as in JAX) are held, float32 on
+the card against float64 on the CPU at 1e-4 of each tensor's largest value,
+their gradients in float64 on both at 1e-8 of the largest gradient.
 The SDE, CDE, ODE-RNN and MoE-ODE samplers (no kernel, as in JAX) are held,
 float32 on the card against float64 on the CPU, at 1e-4. The spectral-norm
 critics and the gradient penalty (no kernel of their own:
@@ -188,7 +191,7 @@ def _trainer(name, device, seed=0):
     cfg = get_config(name, ngf=8, ndf=8, batch_size=4)
     tr = build_trainer(cfg, device=device)
     g = torch.Generator().manual_seed(seed)
-    size, c = (64, 3) if cfg.trunk == "dcgan64" else (28, 1)
+    size, c = (28, 1) if cfg.trunk == "mnist28" else (64, 3)
     images = torch.rand((2, 4, size, size, c), generator=g) * 2 - 1
     videos = torch.rand((2, 4, cfg.video_length, size, size, c),
                         generator=g) * 2 - 1
@@ -247,10 +250,12 @@ def test_a_training_step_on_the_card_matches_the_cpu(cuda, monkeypatch, seed):
 
 
 @pytest.mark.parametrize("name,module", [("ucf_ode", fused_rk4),
-                                         ("mnist_gru", fused_gru)])
+                                         ("mnist_gru", fused_gru),
+                                         ("ucf_gres", fused_rk4)])
 def test_a_training_step_launches_its_kernel_six_times(cuda, name, module):
     """Four no-grad samples in the D updates, two in the G update; the
-    backward differentiates the plain version and launches nothing."""
+    backward differentiates the plain version and launches nothing. The
+    GResBlock trunk keeps the rk4 motion, so K1 as on ``ucf_ode``."""
     tr, state, images, videos = _trainer(name, cuda)
     module.launches = 0
     module.launches_by_variant.update(warp=0, wide=0)
@@ -307,6 +312,51 @@ def test_a_resumed_run_on_the_card_equals_an_uninterrupted_one(deterministic,
         for pa, pb in zip(a.module.parameters(), b.module.parameters()):
             for k in ("exp_avg", "exp_avg_sq", "step"):
                 assert torch.equal(a.opt.state[pa][k], b.opt.state[pb][k]), (n, k)
+
+
+@pytest.mark.parametrize("trunk", ["gres64", "odegres64"])
+def test_a_gres_trunk_on_the_card_matches_the_cpu(card_f32, trunk):
+    """A GResBlock trunk at reduced width (ngf 8, 32 frames): train- and
+    eval-mode frames and the state the train-mode call advanced (running
+    statistics, every ``u``/``u0``/``u1``), float32 on the card against
+    float64 on the CPU, each tensor's max |diff| over its max |value| <
+    1e-4; and the gradients of the parameters and the latents in float64 on
+    both (a float32 ReLU input within rounding of 0 may take the other side
+    on either device, and moves a cancelling gradient sum by far more than
+    its own rounding), < 1e-8."""
+    from ganode_tpu_torch.models.mocogan import TRUNKS
+
+    g = torch.Generator().manual_seed(0)
+    base = TRUNKS[trunk](3, 8, 24)
+    base.init_parameters(torch.Generator().manual_seed(1))
+    z = torch.randn((32, 24), generator=g)
+    w = torch.randn((32, 3, 64, 64), generator=g)
+
+    def run(device, dtype, grads):
+        m = copy.deepcopy(base).to(device, dtype).train()
+        zz = z.to(device, dtype).requires_grad_(grads)
+        y = m(zz)
+        out = [y]
+        if grads:
+            out += torch.autograd.grad((y * w.to(device, dtype)).sum(),
+                                       [zz, *m.parameters()])
+        out += [b for _, b in m.named_buffers() if b.is_floating_point()]
+        with torch.no_grad():
+            out.append(m.eval()(zz))
+        return [t.detach().double().cpu() for t in out]
+
+    rel = lambda a, b, scale: ((a - b).abs().max() / scale).item()
+    want = run("cpu", torch.float64, False)
+    for a, b in zip(run(card_f32, torch.float32, False), want):
+        assert rel(a, b, b.abs().max()) < 1e-4
+    want = run("cpu", torch.float64, True)
+    n_grads = 1 + len(list(base.parameters()))
+    # a conv bias that feeds a batch-statistics norm has a gradient of
+    # exactly 0: both devices give noise there, at the gradients' scale
+    scale = max(g.abs().max() for g in want[1:1 + n_grads])
+    for i, (a, b) in enumerate(zip(run(card_f32, torch.float64, True), want)):
+        grad = 1 <= i <= n_grads
+        assert rel(a, b, scale if grad else b.abs().max()) < 1e-8, i
 
 
 @pytest.fixture

@@ -125,8 +125,9 @@ TRAINER_SIDE = [
     ("ucf_ode", {"compute_dtype": "bfloat16"}, "M4")]
 
 
-PORTED = {"M4", "M9", "M10", "M11"}
-FRAME_SIZE = {"mnist28": 28, "dcgan64": 64, "dcgan128": 128}
+PORTED = {"M4", "M9", "M10", "M11", "M13"}
+FRAME_SIZE = {"mnist28": 28, "dcgan64": 64, "dcgan128": 128, "gres64": 64,
+              "odegres64": 64}
 
 
 def _builds_and_trains(name, overrides):
@@ -159,8 +160,9 @@ def _builds_and_trains(name, overrides):
 def test_unported_configs_name_their_roadmap_item(name, overrides, item):
     """Items still to port raise NotImplementedError naming them; the cases
     of ported items (M4 bf16, M9 WGAN-GP@128, M10 the SDE, CDE, ODE-RNN and
-    MoE-ODE motions, M11 DiffAugment and ADA) build at tiny widths on the
-    CPU and take a finite training step instead."""
+    MoE-ODE motions, M11 DiffAugment and ADA, M13 the GResBlock trunks)
+    build at tiny widths on the CPU and take a finite training step
+    instead."""
     if item in PORTED:
         _builds_and_trains(name, overrides)
         return

@@ -58,7 +58,8 @@ from ganode_tpu_torch.train import GANTrainer
 from ganode_tpu_torch.utils.checkpoint import CheckpointManager
 from ganode_tpu_torch.utils.config import get_config
 from torch_parity import (EpsRecorder, NoiseRecorder, assert_bitwise,
-                          assert_close_tree, np_tree, to_torch, uniform)
+                          assert_close_tree, net_dict, np_tree, rgb_batches,
+                          to_torch)
 
 CFG = get_config("ucf_wgan_gp_128")
 B, T, NGF, NDF, DZC, DZM, S = 2, 16, 4, 4, 10, 4, 128
@@ -90,11 +91,6 @@ def _port_trainer(fused):
     return tr, tr.init_state()
 
 
-def _batches(seed):
-    rng = np.random.default_rng(seed)
-    return uniform(rng, 1, B, S, S, 3), uniform(rng, 1, B, T, S, S, 3)
-
-
 def _recorded_steps(tr, state0, batches):
     """Two JAX steps through one compiled function with the recorders on:
     the first makes the carried-across state, the second is the step under
@@ -120,7 +116,7 @@ def _recorded_steps(tr, state0, batches):
 
 @pytest.fixture(scope="module")
 def jax_run():
-    batches = [_batches(1), _batches(2)]
+    batches = [rgb_batches(1, B, T, S), rgb_batches(2, B, T, S)]
     out = {"batches": batches[1]}
     tr = _jax_trainer(False)
     with jax.enable_x64(False):
@@ -135,13 +131,6 @@ def _port_from(state1, fused=False):
     tr, state = _port_trainer(fused)
     bridge.gan_state_to_torch(state1, state)
     return tr, state
-
-
-def _net_dict(net):
-    adam = bridge._adam_state(net.opt_state)
-    return {"params": net.params, "batch_stats": net.batch_stats,
-            "spectral": net.spectral,
-            "opt_state": {"count": adam.count, "mu": adam.mu, "nu": adam.nu}}
 
 
 def _assert_net(got, want, name):
@@ -184,7 +173,7 @@ def test_wgan_gp_128_train_step_matches_jax(jax_run, variant):
     got = bridge.torch_gan_state_to_jax(state)
     assert got["step"] == int(want_state.step) == 2
     for name in bridge.NETS:
-        _assert_net(got[name], _net_dict(getattr(want_state, name)), name)
+        _assert_net(got[name], net_dict(getattr(want_state, name)), name)
     assert not torch.equal(state.dis_vid.module.SNConv_0.u, u_before)
     assert all(p.grad is None for n in bridge.NETS
                for p in getattr(state, n).module.parameters())
@@ -195,7 +184,7 @@ def test_spectral_state_round_trips_through_the_bridge(jax_run):
     _, state = _port_from(s1)
     back = bridge.torch_gan_state_to_jax(state)
     for name in bridge.NETS:
-        want = _net_dict(getattr(s1, name))
+        want = net_dict(getattr(s1, name))
         for part in ("params", "batch_stats", "spectral"):
             if want[part] is None:
                 assert back[name][part] is None

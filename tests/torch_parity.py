@@ -31,7 +31,8 @@ from flax import linen as nn
 
 import ganode_tpu.ode as jax_ode
 import ganode_tpu.train.gan as jax_gan
-from ganode_tpu.models.mocogan import DCGANTrunk64, DCGANTrunk128, MNISTTrunk28
+from ganode_tpu.models.mocogan import (DCGANTrunk64, DCGANTrunk128,
+                                      GResTrunk64, MNISTTrunk28)
 from ganode_tpu.models.motion import (MotionCDE, MotionMoEODE, MotionODE,
                                       MotionSDE)
 from ganode_tpu.nn.layers import WarmupMLP
@@ -52,12 +53,44 @@ def np_tree(tree):
     return jax.tree_util.tree_map(leaf, tree)
 
 
+# XLA's backend optimisation off: about half the compile time of a JAX
+# function that runs once (the same function; float32 results within
+# rounding of the optimised build)
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
+
+
+def f64_tree(tree):
+    """Every float leaf of a tree as a float64 numpy array (float32 leaves
+    cast up exactly), the others as numpy arrays."""
+    def leaf(a):
+        a = np.asarray(a)
+        return a.astype(np.float64) if a.dtype.kind == "f" else a
+    return jax.tree_util.tree_map(leaf, tree)
+
+
 def normal(rng, *shape):
     return rng.standard_normal(shape).astype(np.float32)
 
 
 def uniform(rng, *shape):
     return rng.uniform(-1.0, 1.0, shape).astype(np.float32)
+
+
+def rgb_batches(seed, b, t, s):
+    """One D iteration's real images ``(1, b, s, s, 3)`` and videos ``(1, b,
+    t, s, s, 3)``, uniform in [-1, 1] from ``seed``."""
+    rng = np.random.default_rng(seed)
+    return uniform(rng, 1, b, s, s, 3), uniform(rng, 1, b, t, s, s, 3)
+
+
+def net_dict(net):
+    """A flax ``NetState`` in the bridge's nested-dict form, its
+    ``spectral`` collection included."""
+    from ganode_tpu_torch.bridge import _adam_state
+    adam = _adam_state(net.opt_state)
+    return {"params": net.params, "batch_stats": net.batch_stats,
+            "spectral": net.spectral,
+            "opt_state": {"count": adam.count, "mu": adam.mu, "nu": adam.nu}}
 
 
 @jax.jit
@@ -105,7 +138,8 @@ class NoiseRecorder:
                 self._keep("x0", args[0])
             elif isinstance(m, MOTIONS):
                 self._keep("traj", out)
-            elif isinstance(m, (MNISTTrunk28, DCGANTrunk64, DCGANTrunk128)):
+            elif isinstance(m, (MNISTTrunk28, DCGANTrunk64, DCGANTrunk128,
+                                GResTrunk64)):
                 self._keep("z", args[0])
         return out
 
@@ -138,6 +172,7 @@ class NoiseRecorder:
             if tag != "traj":
                 assert tag in ("x0", "dW", "noise") and tag not in noise, tag
                 noise[tag] = (jax_increments(value, *extra) if tag == "dW"
+                              else value if value.dtype == np.float64
                               else value.astype(np.float32))
                 continue
             traj = value
@@ -159,12 +194,12 @@ class NoiseRecorder:
         return out
 
 
-def record_noise(fn, *args):
-    """Run ``fn(*args)`` with float32 JAX (x64 off) and the recorder on, the
-    solvers wrapped -> (result, recorder)."""
+def record_noise(fn, *args, x64: bool = False):
+    """Run ``fn(*args)`` with float32 JAX (x64 off; float64 with ``x64``)
+    and the recorder on, the solvers wrapped -> (result, recorder)."""
     rec = NoiseRecorder()
     with pytest.MonkeyPatch.context() as mp, nn.intercept_methods(rec), \
-            jax.enable_x64(False):
+            jax.enable_x64(x64):
         rec.patch_solvers(mp)
         out = jax.block_until_ready(fn(*args))
         jax.effects_barrier()
@@ -284,6 +319,24 @@ def assert_close_tree(got, want, rtol, atol_frac, path=""):
     assert got.shape == want.shape, (path, got.shape, want.shape)
     atol = atol_frac * float(np.abs(want).max(initial=0.0))
     np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, err_msg=path)
+
+
+def assert_close_part(got, want, rtol, atol_frac, path=""):
+    """Leafwise ``|got - want| <= atol + rtol |want|`` with ``atol =
+    atol_frac * max|want|`` over the whole tree ``want`` (a part of a net:
+    all its params, or all its first moments...): a leaf whose exact value
+    is 0 (the gradient, hence the moments, of a conv bias that feeds a
+    batch-statistics norm) holds rounding noise at the scale of the net,
+    not of its own."""
+    leaves = jax.tree_util.tree_leaves_with_path(want)
+    scale = max(float(np.abs(np.asarray(a)).max()) for _, a in leaves)
+    flat = dict(jax.tree_util.tree_leaves_with_path(got))
+    assert len(flat) == len(leaves), path
+    for p, w in leaves:
+        np.testing.assert_allclose(
+            np.asarray(flat[p], np.float64), np.asarray(w, np.float64),
+            rtol=rtol, atol=atol_frac * scale,
+            err_msg=f"{path}{jax.tree_util.keystr(p)}")
 
 
 def flat_state(state):
