@@ -157,9 +157,31 @@ printing one line before the next starts:
     the same noise decoded with the plain rk4 motion, all 1,024 frames in
     one trunk call as the sampler decodes them (the ODE field normalises by
     the call's batch statistics) < 1e-4 with TF32 off; ms per call and the
-    trunk alone with TF32 on, peak memory.
+    trunk alone with TF32 on, peak memory;
+35. differentiates K1 and K2 twice (``d/dθ <VJP(g), v>``, the ODE-GAN
+    regularizer's need) through their ``Function``s, each variant forced,
+    against the plain recurrences at ``ucf_ode``'s and ``mnist_gru``'s
+    motion shapes (B=32, D=16, T=16): within 1e-5 of each tensor's largest
+    magnitude;
+36. runs the ODE-GAN trainer (``train/odegan.py``) over the full-width
+    ``ucf_ode`` triple (``make_mocogan_losses``: eval mode, BCE; lr 0.02,
+    reg 0.01, cuDNN TF32 on): a ``dis_img``, ``dis_vid`` and ``gen`` step
+    with each of euler, rk2 and rk4 on uniform random real batches, each
+    moving only its own net, finite, with K1 launched once per sample (3, 3,
+    2; 4, 4, 4; 6, 6, 8) and K2 never; then 3 timed rk4 triples after that
+    warm-up: ms per network step, the regularizer alone, peak memory;
+37. takes one reduced rk4 triple (ngf = ndf = 8, B = 4, T = 16) from one
+    set of weights and running statistics and one noise dict, on the card in
+    float64 (the plain motion) and in float32 (K1) against the CPU in
+    float64: each net's parameters after each step and each D step's
+    penalty gradient, float64 within 1e-4, float32 within phase 33's fixed
+    bars per part;
+38. runs ``python -m ganode_tpu_torch.train_odegan --synthetic`` in child
+    processes: ``--arch mlp`` with adam, euler, rk2 and rk4 (3 steps, B=64)
+    and ``--arch dcgan --method euler --dry-run``; exit 0, the losses file
+    in the JAX script's format, finite; ms per step.
 
-Float32, except phase 20; each of phases 21-34 prints its seconds. Matrix
+Float32, except phase 20; each of phases 21-38 prints its seconds. Matrix
 products run in full float32 (``torch.backends.cuda.matmul.allow_tf32 =
 False``); the correctness checks also turn TF32 off for cuDNN's
 convolutions, and the serving and training times are taken with cuDNN's
@@ -2028,6 +2050,393 @@ def gres_phases(dev, card, events_ms) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The ODE-GAN trainer (phases 35-38): ``train/odegan.py`` is plain tensor
+# code over ``torch.autograd.grad``, as JAX's is plain ``jax.grad``; its
+# discriminator regularizer differentiates a gradient through the generator,
+# so K1's and K2's ``Function``s are differentiated twice.
+# ---------------------------------------------------------------------------
+
+ODEGAN_METHODS = ("euler", "rk2", "rk4")
+ODEGAN_NETS = ("dis_img", "dis_vid", "gen")
+# K1 launches per network step: one per sample_videos and sample_images,
+# i.e. 2 for the penalty's G loss (a D step with reg > 0), then per stage 1
+# for a D loss and 2 for the G loss
+ODEGAN_K1 = {"euler": {"dis_img": 3, "dis_vid": 3, "gen": 2},
+             "rk2": {"dis_img": 4, "dis_vid": 4, "gen": 4},
+             "rk4": {"dis_img": 6, "dis_vid": 6, "gen": 8}}
+ODEGAN_LR, ODEGAN_REG = 0.02, 0.01
+ODEGAN_TRIPLES = 3   # timed rk4 triples after one warm-up (phase 36)
+ODEGAN_CLI_STEPS = 3
+# d/dθ <VJP(g), v> through a kernel's Function against the plain
+# recurrence: max |diff| over the tensor's largest magnitude
+TOL_DOUBLE_BACKWARD = 1e-5
+
+
+def double_backward_err(module, fused, plain, inputs, consts, variant):
+    """``d/d(inputs, g) <VJP(g), v>`` for random float32 ``g`` and ``v``,
+    through ``fused`` (the kernel's wrapper, its launch forced to
+    ``variant``) and through ``plain`` on the same inputs -> (the worst
+    tensor's max |diff| over its largest magnitude, launches of
+    ``variant``)."""
+    import functools
+
+    import torch
+
+    gen = torch.Generator(inputs[0].device).manual_seed(3)
+    with torch.no_grad():
+        shape = plain(*inputs, *consts).shape
+    cot0 = torch.randn(shape, generator=gen, device=inputs[0].device)
+    vs = [torch.randn(a.shape, generator=gen, device=a.device) for a in inputs]
+    launch, before = module._launch, module.launches_by_variant[variant]
+    module._launch = functools.partial(launch, variant=variant)
+    try:
+        results = []
+        for fn in (fused, plain):
+            leaves = [a.detach().clone().requires_grad_() for a in inputs]
+            cot = cot0.clone().requires_grad_()
+            vjp = torch.autograd.grad(fn(*leaves, *consts), leaves, cot,
+                                      create_graph=True)
+            s = sum((a * b).sum() for a, b in zip(vjp, vs))
+            got = torch.autograd.grad(s, leaves + [cot], allow_unused=True)
+            results.append([torch.zeros_like(x) if d is None else d
+                            for x, d in zip(leaves + [cot], got)])
+    finally:
+        module._launch = launch
+    err = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+              for a, b in zip(*results))
+    return err, module.launches_by_variant[variant] - before
+
+
+def odegan_noise(gen, n: int, model: str, generator) -> dict:
+    """An rk4 step's draws of ``n`` samples for ``model`` from
+    ``generator`` (on its device): the penalty's video and image for a D
+    step, then each stage's (a G stage a video and an image, a D stage its
+    own kind)."""
+    draw = lambda what: gen.draw_noise(n, what, generator)
+    noise = {}
+    if model != "gen":
+        noise["penalty"] = {"videos": draw("videos"), "images": draw("images")}
+    kinds = {"gen": ("videos", "images"), "dis_img": ("images",),
+             "dis_vid": ("videos",)}[model]
+    for stage in range(4):
+        noise[stage] = {what: draw(what) for what in kinds}
+    return noise
+
+
+def odegan_reduced_run(mods_cpu, b, real, noises, device, dtype) -> dict:
+    """One rk4 triple (dis_img, dis_vid, gen) of the ODE-GAN over copies of
+    the CPU modules ``mods_cpu`` (``b`` samples a batch) moved to ``device`` and ``dtype``, on the
+    real batches ``real`` and the draws ``noises`` (per network) cast alike
+    -> every net's parameters after each step and the penalty gradient of
+    each D step, by name, as float64 CPU tensors. float64 runs the plain
+    rk4 motion (K1's wrapper takes float32 only)."""
+    import torch
+
+    import ganode_tpu_torch.models.motion as motion_mod
+    from ganode_tpu_torch.ops import fused_rk4_motion, reference_rk4_motion
+    from ganode_tpu_torch.train import (ODEGANTrainer,
+                                        discriminator_regularizer,
+                                        make_mocogan_losses, module_params)
+
+    mods = {n: copy.deepcopy(m).to(device, dtype) for n, m in mods_cpu.items()}
+    losses = make_mocogan_losses(mods["gen"], mods["dis_img"], mods["dis_vid"],
+                                 b)
+    tr = ODEGANTrainer(*losses, lr=ODEGAN_LR, reg=ODEGAN_REG, method="rk4")
+    move = lambda d: {k: move(v) if isinstance(v, dict) else
+                      v.to(device, dtype) if v.is_floating_point() else
+                      v.to(device) for k, v in d.items()}
+    params = {n: module_params(m) for n, m in mods.items()}
+    out = {}
+    if dtype == torch.float64:
+        motion_mod.fused_rk4_motion = reference_rk4_motion
+    try:
+        for model in ODEGAN_NETS:
+            noise = move(noises[model])
+            batch = None if model == "gen" else real[model].to(device, dtype)
+            if model != "gen":
+                gp = discriminator_regularizer(
+                    lambda g_p, d_p: losses[0](
+                        {**params, "gen": g_p, model: d_p},
+                        noise["penalty"], None),
+                    params["gen"], params[model])
+                out.update({f"{model}.penalty.{k}": v for k, v in gp.items()})
+            params = tr.step(params, noise, batch, model=model)
+            out.update({f"{model}.after.{n}.{k}": v for n in params
+                        for k, v in params[n].items()})
+    finally:
+        motion_mod.fused_rk4_motion = fused_rk4_motion
+    return {k: v.detach().cpu().double() for k, v in out.items()}
+
+
+def odegan_misses(got, ref) -> tuple:
+    """The float32 run's tensors against float64's, by the fixed bars of
+    phase 33 per part (a step's net's parameters, a penalty gradient):
+    |diff| <= F32_RTOL |ref| + F32_FLOOR * the part's largest magnitude ->
+    (the worst |diff| over its bar per part, the tensors over their bar)."""
+    parts = {}
+    for k in ref:
+        step, kind, rest = k.split(".", 2)
+        part = f"{step}.{kind}" + (f".{rest.split('.', 1)[0]}"
+                                   if kind == "after" else "")
+        parts.setdefault(part, []).append(k)
+    worst, misses = {}, []
+    for part, keys in parts.items():
+        atol = F32_FLOOR * max(ref[k].abs().max().item() for k in keys)
+        ratio = 0.0
+        for k in keys:
+            over = ((got[k] - ref[k]).abs()
+                    / (F32_RTOL * ref[k].abs() + atol)).max().item()
+            ratio = max(ratio, over)
+            if over > 1:
+                misses.append((k, over))
+        worst[part] = ratio
+    return worst, misses
+
+
+def odegan_phases(dev, card, events_ms) -> dict:
+    """Phases 35-38 (module docstring): the ODE-GAN trainer; returns the
+    record's entry."""
+    import torch
+
+    from ganode_tpu_torch.models import (discriminators_for_config,
+                                         generator_for_config)
+    from ganode_tpu_torch.ops import (fused_gru, fused_gru_motion, fused_rk4,
+                                      fused_rk4_motion, reference_gru_motion,
+                                      reference_rk4_motion)
+    from ganode_tpu_torch.train import (ODEGANTrainer,
+                                        discriminator_regularizer,
+                                        make_mocogan_losses, module_params)
+    from ganode_tpu_torch.utils.config import get_config
+
+    out = {}
+    t0 = time.perf_counter()
+    phase("K1 and K2 double backward (d/dθ <VJP(g), v>) against the plain "
+          "recurrences: ucf_ode's motion (B=32, D=H=16, T=16) and "
+          "mnist_gru's (B=32, D=16, T=16), warp and wide")
+    g = torch.Generator().manual_seed(5)
+    r = lambda *s, scale=1.0: (torch.randn(s, generator=g) * scale).to(dev)
+    ts = torch.linspace(0.0, 1.0, 16)
+    rk4_in = [r(32, 16), r(16, 16, scale=0.4), r(16, scale=0.1),
+              r(16, 16, scale=0.4), r(16, scale=0.1)]
+    gru_in = [r(32, 16), r(16, 32, 16), r(16, 48, scale=0.3),
+              r(16, 48, scale=0.3), r(48, scale=0.1), r(48, scale=0.1)]
+    dbl = {}
+    for kernel, module, fused, plain, inputs, consts in (
+            ("K1 rk4_motion", fused_rk4, fused_rk4_motion,
+             reference_rk4_motion, rk4_in, (ts,)),
+            ("K2 gru_motion", fused_gru, fused_gru_motion,
+             reference_gru_motion, gru_in, ())):
+        for variant in ("warp", "wide"):
+            err, n = double_backward_err(module, fused, plain, inputs, consts,
+                                         variant)
+            dbl[f"{kernel} {variant}"] = err
+            say(f"{kernel} {variant}: double backward max|Function-plain| / "
+                f"max|plain| = {err:.3e} (tol {TOL_DOUBLE_BACKWARD}); "
+                f"{n} launch")
+            require(n == 1 and err < TOL_DOUBLE_BACKWARD,
+                    f"{kernel} {variant} double backward: {err}, {n} launches")
+    out["double_backward_err"] = dbl
+    say(f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    cfg = get_config("ucf_ode")
+    b = cfg.batch_size
+    phase(f"ODE-GAN over the ucf_ode triple at full width ({cfg.trunk}, "
+          f"ngf=ndf={cfg.ngf}, B={b}, T={cfg.video_length}, 64x64x3, "
+          f"PatchImageDiscriminator, VideoDiscriminator(ksize="
+          f"{cfg.video_disc_ksize}), eval mode, BCE, lr {ODEGAN_LR}, reg "
+          f"{ODEGAN_REG}), cuDNN TF32 on: a dis_img, dis_vid and gen step "
+          f"of each method, then {ODEGAN_TRIPLES} timed rk4 triples")
+    torch.backends.cudnn.allow_tf32 = True
+    gen = generator_for_config(cfg, device=dev)
+    dis_img, dis_vid = discriminators_for_config(cfg, device=dev)
+    mods = {"gen": gen, "dis_img": dis_img, "dis_vid": dis_vid}
+    losses = make_mocogan_losses(gen, dis_img, dis_vid, b)
+    params0 = {n: module_params(m) for n, m in mods.items()}
+    images, videos = random_batches(cfg, dev, 0)
+    batches = {"dis_img": images[0], "dis_vid": videos[0], "gen": None}
+    rng = torch.Generator(dev).manual_seed(0)
+
+    def triple(tr, params):
+        """One step of each net in turn -> (params, ms and K1 launches per
+        network step, K2 launches)."""
+        ms, k1, k2 = {}, {}, 0
+        for model in ODEGAN_NETS:
+            reset_counts()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            new = tr.step(params, rng, batches[model], model=model)
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms[model] = ev[0].elapsed_time(ev[1])
+            k1[model], k2 = fused_rk4.launches, k2 + fused_gru.launches
+            moved = [n for n in mods if any(
+                not torch.equal(new[n][k], params[n][k]) for k in params[n])]
+            require(moved == [model], f"a {model} step moved {moved}")
+            require(all(bool(torch.isfinite(v).all())
+                        for v in new[model].values()),
+                    f"{model}: parameters not finite")
+            params = new
+        return params, ms, k1, k2
+
+    def loss_values(params):
+        with torch.no_grad():
+            return {"g_loss": losses[0](params, rng, None).item(),
+                    "d_img_loss": losses[1](params, rng, images[0]).item(),
+                    "d_vid_loss": losses[2](params, rng, videos[0]).item()}
+
+    for method in ODEGAN_METHODS:
+        tr = ODEGANTrainer(*losses, lr=ODEGAN_LR, reg=ODEGAN_REG,
+                           method=method)
+        torch.cuda.reset_peak_memory_stats()
+        params, ms, k1, k2 = triple(tr, params0)
+        vals = loss_values(params)
+        require(k1 == ODEGAN_K1[method] and k2 == 0,
+                f"{method}: K1 {k1} per network step, K2 {k2}; want "
+                f"{ODEGAN_K1[method]} and 0")
+        require(all(map(math.isfinite, vals.values())), f"losses {vals}")
+        out[method] = {"ms_first": ms, "k1_launches": k1, "k2_launches": k2,
+                       "losses_after": vals,
+                       "max_memory_bytes": torch.cuda.max_memory_allocated()}
+        say(f"ODE-GAN {method}: first triple (the first cold) ms per network step "
+            f"{ {k: round(v, 2) for k, v in ms.items()} }; K1 launches "
+            f"{k1}, K2 {k2}; losses after {vals}; peak memory "
+            f"{out[method]['max_memory_bytes'] / 2 ** 30:.2f} GiB; {card}")
+    tr = ODEGANTrainer(*losses, lr=ODEGAN_LR, reg=ODEGAN_REG, method="rk4")
+    torch.cuda.reset_peak_memory_stats()
+    timed, params = [], params0
+    for _ in range(ODEGAN_TRIPLES):
+        params, ms, k1, k2 = triple(tr, params)
+        require(k1 == ODEGAN_K1["rk4"] and k2 == 0, f"rk4: K1 {k1}, K2 {k2}")
+        timed.append(ms)
+    mem = torch.cuda.max_memory_allocated()
+    ms = {k: sum(t[k] for t in timed) / len(timed) for k in ODEGAN_NETS}
+    reg_ms = {}
+    for net in ("dis_img", "dis_vid"):
+        def penalty(net=net):
+            return discriminator_regularizer(
+                lambda g_p, d_p: losses[0]({**params, "gen": g_p, net: d_p},
+                                           rng, None),
+                params["gen"], params[net])
+        reg_ms[net] = events_ms(penalty, 3)
+    out["rk4_timed"] = {"ms_per_network_step": ms, "triples": timed,
+                        "regularizer_ms": reg_ms, "max_memory_bytes": mem,
+                        "k1_launches_per_network_step": ODEGAN_K1["rk4"],
+                        "losses_after": loss_values(params)}
+    say(f"ODE-GAN rk4 (cuDNN TF32 on, matmul TF32 off), mean of "
+        f"{ODEGAN_TRIPLES} triples after the warm-up: dis_img "
+        f"{ms['dis_img']:.2f} ms, dis_vid {ms['dis_vid']:.2f} ms, gen "
+        f"{ms['gen']:.2f} ms per network step ({sum(ms.values()):.2f} per "
+        f"triple); the regularizer alone {reg_ms['dis_img']:.2f} ms "
+        f"(dis_img) and {reg_ms['dis_vid']:.2f} ms (dis_vid); peak memory "
+        f"{mem / 2 ** 30:.2f} GiB; K1 {ODEGAN_K1['rk4']} per network step; "
+        f"{time.perf_counter() - t0:.1f} s; {card}")
+    del params, params0, mods, losses, gen, dis_img, dis_vid, images, videos
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    phase("one ODE-GAN rk4 triple at reduced width (ngf=ndf=8, B=4, T=16, "
+          f"reg {ODEGAN_REG}): the card in float64 and in float32 (K1) "
+          "against the CPU in float64, cuDNN deterministic, TF32 off")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    cfg_r = get_config("ucf_ode", ngf=8, ndf=8, batch_size=4,
+                       video_length=16)
+    mods_cpu = {"gen": generator_for_config(cfg_r, device="cpu")}
+    mods_cpu["dis_img"], mods_cpu["dis_vid"] = discriminators_for_config(
+        cfg_r, device="cpu")
+    # running statistics away from the init's zeros and ones, so that a
+    # side using other statistics would show
+    gs = torch.Generator().manual_seed(11)
+    for m in mods_cpu.values():
+        for k, buf in m.named_buffers():
+            if k.endswith("running_mean"):
+                buf.copy_(0.1 * torch.randn(buf.shape, generator=gs))
+            elif k.endswith("running_var"):
+                buf.copy_(0.5 + torch.rand(buf.shape, generator=gs))
+    ims, vids = random_batches(cfg_r, "cpu", 7)
+    real = {"dis_img": ims[0], "dis_vid": vids[0]}
+    gn = torch.Generator().manual_seed(8)
+    noises = {m: odegan_noise(mods_cpu["gen"], 4, m, gn) for m in ODEGAN_NETS}
+    try:
+        ref = odegan_reduced_run(mods_cpu, 4, real, noises, "cpu", torch.float64)
+        card64 = odegan_reduced_run(mods_cpu, 4, real, noises, dev,
+                                    torch.float64)
+        reset_counts()
+        card32 = odegan_reduced_run(mods_cpu, 4, real, noises, dev,
+                                    torch.float32)
+        k1_reduced = fused_rk4.launches
+    finally:
+        torch.backends.cudnn.deterministic = False
+    f64_err = max((card64[k] - v).abs().max().item() for k, v in ref.items())
+    worst, misses = odegan_misses(card32, ref)
+    f32_err = max((card32[k] - v).abs().max().item() for k, v in ref.items())
+    say(f"ODE-GAN reduced rk4 triple over {len(ref)} tensors (each net's "
+        f"parameters after each step, each D step's penalty gradient): the "
+        f"card in float64 max|diff| {f64_err:.3e} (tol {TOL_STEP}); in "
+        f"float32 with K1 ({k1_reduced} launches) {f32_err:.3e}, worst "
+        f"|diff| over its fixed bar per part "
+        f"{ {k: float(f'{v:.3g}') for k, v in worst.items()} } (<= 1); "
+        f"{time.perf_counter() - t0:.1f} s")
+    require(f64_err < TOL_STEP, f"ODE-GAN card float64 vs CPU: {f64_err}")
+    # the triple's launches, and 2 more for each D step's penalty gradient
+    # taken on its own
+    require(k1_reduced == sum(ODEGAN_K1["rk4"].values()) + 4 and not misses,
+            f"ODE-GAN card float32 vs CPU float64: K1 {k1_reduced}, tensors "
+            f"over their bar {misses[:8]}")
+    out["reduced_card_vs_cpu"] = {"card_float64_max_abs": f64_err,
+                                  "card_float32_max_abs": f32_err,
+                                  "float32_over_bar_by_part": worst,
+                                  "k1_launches": k1_reduced}
+
+    t0 = time.perf_counter()
+    phase("the ODE-GAN CLI: python -m ganode_tpu_torch.train_odegan "
+          f"--synthetic, --arch mlp for adam, euler, rk2 and rk4 "
+          f"({ODEGAN_CLI_STEPS} steps, B=64) and --arch dcgan --method euler "
+          "--dry-run, each in a child process")
+    tmp = tempfile.mkdtemp(prefix="ganode_odegan_")
+    cli = {}
+    try:
+        runs = [("mlp", m, ["--steps", str(ODEGAN_CLI_STEPS)])
+                for m in ("adam", "euler", "rk2", "rk4")]
+        runs.append(("dcgan", "euler", ["--dry-run"]))
+        for arch, method, extra in runs:
+            wd = os.path.join(tmp, f"{arch}_{method}")
+            t1 = time.perf_counter()
+            stdout = run_child([sys.executable, "-m",
+                                "ganode_tpu_torch.train_odegan", "--synthetic",
+                                "--arch", arch, "--method", method,
+                                "--workdir", wd] + extra,
+                               f"train_odegan --arch {arch} --method {method}")
+            seconds = time.perf_counter() - t1
+            with open(os.path.join(wd, f"losses_{method}.json")) as f:
+                logged = json.load(f)
+            require([sorted(e) for e in logged] == [["d_loss", "g_loss", "step"]]
+                     and logged[0]["step"] == 0
+                     and all(math.isfinite(e[k]) for e in logged
+                             for k in ("g_loss", "d_loss")),
+                     f"losses_{method}.json: {logged}")
+            # "... (the first, with its one-time set-up, X ms[; the N after
+            # the first Y ms/step]; ...)"
+            timing = stdout.split("(the first, with its one-time set-up, ")[1]
+            first_ms = float(timing.split(" ms")[0])
+            ms_step = (float(timing.split("after the first ")[1]
+                             .split(" ms/step")[0])
+                       if "after the first" in timing else None)
+            cli[f"{arch} {method}"] = {"first_step_ms": first_ms,
+                                       "ms_per_later_step": ms_step,
+                                       "seconds": seconds, "losses": logged}
+            say(f"train_odegan --arch {arch} --method {method}: exit 0 in "
+                f"{seconds:.1f} s of process; the first step {first_ms:.2f} "
+                f"ms, later steps {ms_step} ms/step (its own clock, synced); "
+                f"losses {logged}; {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["cli"] = cli
+    return out
+
+
 def main() -> int:
     faulthandler.enable()
     phase("watchdog armed: %d s per phase" % WATCHDOG_S)
@@ -2339,6 +2748,7 @@ def main() -> int:
                                          wgan["ms_per_step"])
     training["leaky_relu_cost_ms"] = leaky_relu_phase(dev, card)
     training["gres"] = gres_phases(dev, card, events_ms)
+    training["odegan"] = odegan_phases(dev, card, events_ms)
 
     worst = lambda kernel: max(e for (k, _), e in errs.items() if k == kernel)
     record = {"kernels": [
@@ -2402,6 +2812,20 @@ def main() -> int:
             rec["serving"]["k1_launches"]
         record["kernels"][1]["launches_by_path"][
             f"train_step {name}, {GRES_STEPS} steps"] = rec["k2_launches"]
+    # the ODE-GAN trainer's network steps over the ucf_ode triple: K1 once
+    # per sample, K2 none
+    for method in ODEGAN_METHODS:
+        for net in ODEGAN_NETS:
+            path = f"ODE-GAN {method} {net} step, ucf_ode"
+            k1_paths[path] = training["odegan"][method]["k1_launches"][net]
+        record["kernels"][1]["launches_by_path"][
+            f"ODE-GAN {method} triple, ucf_ode"] = \
+            training["odegan"][method]["k2_launches"]
+    for kernel, key in zip(record["kernels"], ("K1 rk4_motion",
+                                               "K2 gru_motion")):
+        kernel["double_backward_max_rel_err"] = max(
+            v for k, v in training["odegan"]["double_backward_err"].items()
+            if k.startswith(key))
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,8 @@ the other direction, in ``ganode_tpu/compat_torch.py``:
   (Ci, Co, kh, kw)``, **spatially flipped** as well: torch's transposed conv
   convolves with the flipped kernel, flax's runs an un-flipped correlation
 * BatchNorm ``scale``/``bias`` and batch_stats ``mean``/``var`` <->
-  ``weight``/``bias``/``running_mean``/``running_var``
+  ``weight``/``bias``/``running_mean``/``running_var``; GroupNorm
+  ``scale``/``bias`` <-> ``weight``/``bias``
 * GRU ``wi``/``wh``/``bi``/``bh`` and the mixture-of-experts field's stacked
   ``expert_w1``/``expert_b1``/``expert_w2``/``expert_b2`` keep their names
   and layout; its ``gate`` is a Dense.
@@ -139,7 +140,8 @@ def torch_to_jax(state_dict: dict) -> dict:
             collection, name = "batch_stats", stat_names[leaf]
         elif leaf in _SPECTRAL:
             collection, name = "spectral", leaf
-        elif leaf == "weight" and mods[-1].startswith("BatchNorm"):
+        elif leaf == "weight" and mods[-1].startswith(("BatchNorm",
+                                                       "GroupNorm")):
             collection, name = "params", "scale"
         elif leaf == "weight":
             collection, name = "params", "kernel"
@@ -271,3 +273,20 @@ def torch_gan_state_to_jax(state) -> dict:
                   {k: np.asarray(v.detach().cpu(), np.float32)
                    for k, v in state.ada.items()})
     return out
+
+
+def odegan_params_to_torch(all_params: dict, modules: dict) -> dict:
+    """The JAX ODE-GAN trainer's ``all_params`` (``{"gen", "dis_img",
+    "dis_vid"}``, each a params tree with numpy leaves, or None) -> the
+    port's (each a ``{parameter name: tensor}`` dict of the module of that
+    name in ``modules``, on its device), as ``train.ODEGANTrainer`` takes it."""
+    return {name: None if tree is None else
+            _params_to_torch(tree, modules[name])
+            for name, tree in all_params.items()}
+
+
+def odegan_params_to_jax(all_params: dict) -> dict:
+    """The port's ODE-GAN ``all_params`` -> JAX params trees (numpy leaves),
+    None kept."""
+    return {name: None if p is None else torch_to_jax(p)["params"]
+            for name, p in all_params.items()}

@@ -365,8 +365,13 @@ class VideoGenerator(nn.Module):
         z = torch.cat(parts + [z_motion], dim=1)
         return self.main(z).permute(0, 2, 3, 1), None
 
-    def forward(self, n: int, **kwargs):
-        """Default entry: ``sample_videos``."""
+    def forward(self, n: int, *, sample: str = "videos", **kwargs):
+        """Default entry: ``sample_videos``; ``sample="images"`` calls
+        ``sample_images`` (the entry ``torch.func.functional_call`` takes)."""
+        if sample not in ("videos", "images"):
+            raise ValueError(f"sample must be 'videos' or 'images', not {sample!r}")
+        if sample == "images":
+            return self.sample_images(n, **kwargs)
         return self.sample_videos(n, **kwargs)
 
 

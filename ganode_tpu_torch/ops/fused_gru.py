@@ -14,14 +14,15 @@ shared-memory tiles (``_build.choose_variant``).
 ``fused_gru_motion`` takes tensors on either device. On the CPU it runs the
 plain version, ``reference_gru_motion``; on a CUDA device it launches the
 kernel or raises. Gradients differentiate the plain version, as the JAX
-package's ``_bwd`` does (no backward kernel); a call that needs none launches
-without ``torch.autograd.Function``.
+package's ``_bwd`` does (no backward kernel), twice too; a call that needs
+none launches without ``torch.autograd.Function``.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
+from .fused_rk4 import _plain_vjp
 
 # Kernel launches since the last reset, in all and by variant; chip_smoke.py
 # reads them to show the serving path went through the kernel.
@@ -80,13 +81,8 @@ class _FusedGRU(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        with torch.enable_grad():
-            leaves = [a.detach().requires_grad_(need)
-                      for a, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-            out = reference_gru_motion(*leaves)
-            wrt = [a for a in leaves if a.requires_grad]
-            grads = iter(torch.autograd.grad(out, wrt, g))
-        return tuple(next(grads) if a.requires_grad else None for a in leaves)
+        return tuple(_plain_vjp(reference_gru_motion, ctx.saved_tensors,
+                                ctx.needs_input_grad, g))
 
 
 def fused_gru_motion(h0, e, wi, wh, bi, bh):

@@ -10,8 +10,8 @@ else ``rk4_wide_kernel``, shared-memory tiles (``_build.choose_variant``).
 ``fused_rk4_motion`` takes tensors on either device. On the CPU it runs the
 plain version, ``reference_rk4_motion``; on a CUDA device it launches the
 kernel or raises. Gradients, as in the JAX package's ``_bwd``, differentiate
-the plain version (no backward kernel); a call that needs none launches
-without ``torch.autograd.Function``.
+the plain version (no backward kernel), twice too; a call that needs none
+launches without ``torch.autograd.Function``.
 """
 from __future__ import annotations
 
@@ -96,6 +96,28 @@ def _launch(x, w1, b1, w2, b2, n_out: int, h: float, variant=None):
     return out
 
 
+def _plain_vjp(plain, inputs, needs, g, *consts):
+    """The VJP of ``plain(*inputs, *consts)`` at the cotangent ``g``, None for
+    each input that needs no gradient: the kernels' backward, the plain
+    recurrence re-run and differentiated, as the JAX package's ``_bwd`` is
+    (``fused_rk4.py:139``, ``fused_gru.py:115``).
+
+    Under ``create_graph`` (grad mode on inside ``backward``) the recurrence
+    runs on the saved inputs themselves and its VJP keeps its graph, so the
+    gradients differentiate again with respect to the inputs and to ``g``
+    (a penalty on a gradient through the motion: the ODE-GAN regularizer).
+    Otherwise it runs on detached copies, which keeps no graph behind."""
+    create_graph = torch.is_grad_enabled()
+    leaves = (list(inputs) if create_graph else
+              [a.detach().requires_grad_(need) for a, need in zip(inputs, needs)])
+    with torch.enable_grad():
+        out = plain(*leaves, *consts)
+        wrt = [a for a, need in zip(leaves, needs) if need]
+        grads = iter(torch.autograd.grad(out, wrt, g,
+                                         create_graph=create_graph))
+    return [next(grads) if need else None for need in needs]
+
+
 class _FusedRK4(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, ts, h):
@@ -104,16 +126,10 @@ class _FusedRK4(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        inputs = ctx.saved_tensors
-        ts = inputs[-1]
-        with torch.enable_grad():
-            leaves = [a.detach().requires_grad_(need)
-                      for a, need in zip(inputs[:5], ctx.needs_input_grad[:5])]
-            out = reference_rk4_motion(*leaves, ts)
-            wrt = [a for a in leaves if a.requires_grad]
-            grads = iter(torch.autograd.grad(out, wrt, g))
-        return (*(next(grads) if a.requires_grad else None for a in leaves),
-                None, None)
+        *inputs, ts = ctx.saved_tensors
+        grads = _plain_vjp(reference_rk4_motion, inputs,
+                           ctx.needs_input_grad[:5], g, ts)
+        return (*grads, None, None)
 
 
 def fused_rk4_motion(x, w1, b1, w2, b2, ts):

@@ -1,7 +1,8 @@
 """Training: the alternating-Adam GAN step and the run around it (twins of
 ``ganode_tpu.train``'s ``GANTrainer`` and ``runner``; ``python -m
-ganode_tpu_torch.train`` is the command line), and DiffAugment with the ADA
-controller. The ODE-GAN trainer waits for ROADMAP M12."""
+ganode_tpu_torch.train`` is the command line), DiffAugment with the ADA
+controller, and the functional ODE-GAN (optimizer-as-ODE) trainer
+(``python -m ganode_tpu_torch.train_odegan``)."""
 from .diffaug import (
     ada_update,
     diff_augment,
@@ -22,6 +23,15 @@ from .losses import (
     gradient_penalty,
     r1_penalty,
 )
+from .odegan import (
+    ODEGANTrainer,
+    discriminator_regularizer,
+    euler_step,
+    make_mocogan_losses,
+    module_params,
+    rk2_step,
+    rk4_step,
+)
 from .runner import (
     GracefulStop,
     build_data,
@@ -37,6 +47,7 @@ __all__ = [
     "GracefulStop",
     "LOSSES",
     "NetState",
+    "ODEGANTrainer",
     "bce_logits",
     "build_data",
     "ada_update",
@@ -46,14 +57,20 @@ __all__ = [
     "d_loss_wasserstein",
     "diff_augment",
     "diffaug_draws",
+    "discriminator_regularizer",
+    "euler_step",
     "g_loss_bce",
     "g_loss_hinge",
     "g_loss_wasserstein",
     "gradient_penalty",
     "make_device_data_step",
+    "make_mocogan_losses",
+    "module_params",
     "parse_policy",
     "r1_penalty",
     "reference_adam",
+    "rk2_step",
+    "rk4_step",
     "run_training",
     "translate2d",
 ]

@@ -5,7 +5,7 @@ trunk's ReLU inputs change sign between float32 and float64 in one call.
 
     PYTHONPATH=. python tests/gres_float32_drift.py ucf_gres 0 1 2 3 4 5 6
     PYTHONPATH=. python tests/gres_float32_drift.py ucf_odegres 0 \
-        --perturb 1e-12
+        --perturb 1e-12 [--two-pass-variance]
 
 Per seed (the JAX init key, both batches and both step keys derive from
 it) JAX takes a float32 step to make the carried-across state; from there
@@ -18,10 +18,16 @@ max |diff| over the part's largest magnitude, and for the generator the
 leaf of the largest difference. ``--perturb E`` also takes both float64
 steps on real batches scaled by ``1 + E``: a distance that jumps far above
 E marks an input at a kink (a ReLU at 0) in that float64 step.
+``--two-pass-variance`` runs JAX's BatchNorms with the two-pass variance
+``E[(x - E[x])^2]``, as the port's, instead of flax's default one-pass
+``E[x^2] - E[x]^2`` (``flax.linen.normalization._compute_stats``'s
+``use_fast_variance``, wrapped here; the JAX package is not edited).
 """
 import argparse
+import functools
 import sys
 
+import flax.linen.normalization as flax_norm
 import jax
 import numpy as np
 import pytest
@@ -110,7 +116,12 @@ def main(argv=None) -> int:
     ap.add_argument("config", choices=("ucf_gres", "ucf_odegres"))
     ap.add_argument("seeds", type=int, nargs="+")
     ap.add_argument("--perturb", type=float, default=0.0)
+    ap.add_argument("--two-pass-variance", action="store_true")
     args = ap.parse_args(argv)
+    if args.two_pass_variance:
+        stats = flax_norm._compute_stats
+        flax_norm._compute_stats = functools.wraps(stats)(
+            lambda *a, **kw: stats(*a, **{**kw, "use_fast_variance": False}))
     jax.config.update("jax_platforms", "cpu")
     torch.set_num_threads(1)
     motion_mod.fused_rk4_motion = reference_rk4_motion  # float32 only

@@ -35,8 +35,9 @@ steps of up to ``lr`` in either direction (1.5e-4 to 3.5e-4 of the largest
 parameter on both sides). In float64 the two steps agree to 1.2e-7 of each
 part's scale on 12 of those 13 seeds; on ``ucf_odegres`` seed 0 the
 generator's ``Dense_0`` moments differ by 3.9e-4 (every other leaf within
-2e-6), with the port's step smooth under a 1e-12 change of the real
-batches: not explained yet (``ROADMAP.md`` Queue 3).
+2e-6): flax's BatchNorm variance is one-pass, ``E[x^2] - E[x]^2``, the
+port's two-pass; with JAX's made two-pass too (``gres_float32_drift.py
+--two-pass-variance``) the two agree to 5.4e-8 there.
 
 Tolerances: losses rtol 1e-4; every part of every net (parameters,
 BatchNorm statistics, every ``u``, both Adam moments) rtol 1e-4 with an

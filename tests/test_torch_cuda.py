@@ -18,7 +18,9 @@ abs on losses and parameters after a whole training step, card against CPU
 (every convolution sums in another order on each device). A resumed run must
 equal an uninterrupted one bit for bit, under deterministic algorithms; for
 cuBLAS those need ``CUBLAS_WORKSPACE_CONFIG``, set here before cuBLAS starts.
-The GResBlock trunks (plain convolutions, as in JAX) are held, float32 on
+Differentiated twice (the ODE-GAN regularizer), each kernel's ``Function``
+is held against the plain recurrence at 1e-5 of each tensor's largest
+value. The GResBlock trunks (plain convolutions, as in JAX) are held, float32 on
 the card against float64 on the CPU at 1e-4 of each tensor's largest value,
 their gradients in float64 on both at 1e-8 of the largest gradient.
 The SDE, CDE, ODE-RNN and MoE-ODE samplers (no kernel, as in JAX) are held,
@@ -143,6 +145,44 @@ def test_gradients_through_the_kernels(cuda):
         plain(*want_leaves, *args[5:]).backward(2 * out.detach())
         for a, b in zip(leaves, want_leaves):
             torch.testing.assert_close(a.grad, b.grad, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("variant", ["warp", "wide"])
+def test_the_kernels_differentiate_twice_as_the_plain_version(cuda,
+                                                              monkeypatch,
+                                                              variant):
+    # d/d(inputs, g) <VJP(g), v> through each kernel's Function (its launch
+    # forced to the variant) against the plain recurrence on the same
+    # float32 inputs: the ODE-GAN regularizer differentiates a gradient
+    # through the motion. Within 1e-5 of each tensor's largest magnitude.
+    import functools
+
+    for module, fused, plain, args in (
+            (fused_rk4, fused_rk4_motion, reference_rk4_motion,
+             _rk4(cuda, 32, 16, 16, 16)),
+            (fused_gru, fused_gru_motion, reference_gru_motion,
+             _gru(cuda, 32, 16, 16))):
+        n_in = 5 if module is fused_rk4 else 6
+        inputs, consts = args[:n_in], args[n_in:]
+        monkeypatch.setattr(module, "_launch",
+                            functools.partial(module._launch, variant=variant))
+        g = torch.Generator(cuda).manual_seed(1)
+        cot0 = torch.randn(plain(*inputs, *consts).shape, generator=g,
+                           device=cuda)
+        vs = [torch.randn(a.shape, generator=g, device=cuda) for a in inputs]
+        before = module.launches_by_variant[variant]
+        results = []
+        for fn in (fused, plain):
+            leaves = [a.clone().requires_grad_() for a in inputs]
+            cot = cot0.clone().requires_grad_()
+            vjp = torch.autograd.grad(fn(*leaves, *consts), leaves, cot,
+                                      create_graph=True)
+            s = sum((a * b).sum() for a, b in zip(vjp, vs))
+            results.append(torch.autograd.grad(s, leaves + [cot]))
+        assert module.launches_by_variant[variant] == before + 1
+        for got, want in zip(*results):
+            torch.testing.assert_close(got, want, rtol=0,
+                                       atol=1e-5 * want.abs().max().item())
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
