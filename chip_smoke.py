@@ -180,8 +180,27 @@ printing one line before the next starts:
     processes: ``--arch mlp`` with adam, euler, rk2 and rk4 (3 steps, B=64)
     and ``--arch dcgan --method euler --dry-run``; exit 0, the losses file
     in the JAX script's format, finite; ms per step.
+39. evaluates at the north-star geometry (``eval/``: cuDNN convolutions
+    and host numpy, as the JAX package's eval is plain XLA and numpy; the
+    feature models are trained here, so no ``eval_assets/`` is needed): ``synthetic_moving_shapes(512, 32, size=128)`` moved to the card
+    (3.2 GB), ``train_video_embedder`` (64 classes, 128 features, 20 steps,
+    batch 16) and ``train_classifier`` (8 classes, 20 steps, one random
+    frame per clip); their features of 8 clips and probabilities of 64
+    frames against the CPU in float64 (TF32 off, cuDNN deterministic, <
+    1e-4 of the largest magnitude); then scores a seeded full-width
+    ``ucf_wgan_gp_128`` generator after one warm-up pass: 256 fakes from 4
+    x ``sample_videos(64)``, embedded at batch 32 with 256 reals, FVD and
+    IS finite, K1 and K2 +0 (dopri5, as in JAX); ms per 64-clip sample and
+    per 32-clip embed, FVD ms, the whole eval's seconds and clips/s, peak
+    memory;
+40. runs ``python -m ganode_tpu_torch.evaluate --config ucf_ode --synthetic
+    --n-samples 256 --classifier-steps 20`` in this process on a fresh
+    2-step full-width run, twice on one assets directory: ``eval.json``
+    with the JAX script's keys and finite scores, K1 +4 (one per 64-clip
+    chunk) and K2 +0 each time, the assets trained and saved by the first
+    run and loaded, their hashes unchanged, by the second.
 
-Float32, except phase 20; each of phases 21-38 prints its seconds. Matrix
+Float32, except phase 20; each of phases 21-40 prints its seconds. Matrix
 products run in full float32 (``torch.backends.cuda.matmul.allow_tf32 =
 False``); the correctness checks also turn TF32 off for cuDNN's
 convolutions, and the serving and training times are taken with cuDNN's
@@ -2437,6 +2456,237 @@ def odegan_phases(dev, card, events_ms) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Evaluation (phases 39-40): ``eval/`` is cuDNN convolutions and host numpy,
+# as the JAX package's is plain XLA and host numpy. The feature models are
+# trained here, as the evaluate command does when an asset is absent, so
+# the script needs no ``eval_assets/``.
+# ---------------------------------------------------------------------------
+
+# the north-star protocol (scripts/diag_raw_vs_ema.py): 512 synthetic reals
+# of 128x128x32, 256 fakes from 4 x sample_videos(64), the embedder at
+# batch 32
+EVAL_REALS, EVAL_FAKES, EVAL_CHUNK, EVAL_EMB_BS = 512, 256, 64, 32
+EVAL_STEPS = 20      # feature-model training steps on the card
+EVAL_CHECK_CLIPS = 8
+# features and probabilities, card (float32, TF32 off, cuDNN deterministic)
+# against the CPU in float64: max |diff| over the largest magnitude
+TOL_EVAL = 1e-4
+# the evaluate command (phase 40): fakes sampled in 64-clip chunks
+EVAL_CLI_SAMPLES = 256
+JAX_EVAL_KEYS = ["config", "checkpoint_step", "n_samples", "n_fake_videos",
+                 "frame_sampling", "asset_hashes", "classifier_train_acc",
+                 "embedder_train_acc", "inception_score_mean",
+                 "inception_score_std", "fvd"]
+
+
+def eval_check(model, params, x, run) -> float:
+    """``run(model, params, x)`` on the card, float32 with TF32 off and
+    cuDNN deterministic, against the same on the CPU in float64: max |diff|
+    over the largest magnitude."""
+    import torch
+
+    tf32, det = torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = False, True
+    try:
+        got = run(model, params, x).double().cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = tf32, det
+    cpu = copy.deepcopy(model).cpu().double()
+    want = run(cpu, {k: v.detach().cpu().double() for k, v in params.items()},
+               x.detach().cpu().double())
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def eval_phases(dev, card) -> dict:
+    """Phases 39-40 (module docstring): evaluation at the north-star
+    geometry and the evaluate command; returns the record's entry."""
+    import torch
+
+    from ganode_tpu_torch import evaluate
+    from ganode_tpu_torch.data import synthetic_moving_shapes
+    from ganode_tpu_torch.eval import (apply, embed_videos, feature_stats,
+                                       frechet_distance, inception_score,
+                                       train_classifier, train_video_embedder)
+    from ganode_tpu_torch.models import generator_for_config
+    from ganode_tpu_torch.ops import fused_gru, fused_rk4
+    from ganode_tpu_torch.train import runner
+    from ganode_tpu_torch.utils.config import get_config
+
+    out = {}
+    t0 = time.perf_counter()
+    cfg = get_config("ucf_wgan_gp_128")
+    t = cfg.video_length
+    phase(f"evaluation at the north-star geometry: synthetic_moving_shapes("
+          f"{EVAL_REALS}, {t}, size=128) on the card, the FVD embedder and "
+          f"the IS classifier trained {EVAL_STEPS} steps, {EVAL_FAKES} fakes "
+          f"of a seeded full-width ucf_wgan_gp_128 generator in "
+          f"{EVAL_FAKES // EVAL_CHUNK} x sample_videos({EVAL_CHUNK}), "
+          f"embedded at batch {EVAL_EMB_BS}, FVD and IS; cuDNN TF32 on")
+    torch.backends.cudnn.allow_tf32 = True
+    videos_np, labels_np = synthetic_moving_shapes(EVAL_REALS, t, size=128)
+    videos = torch.from_numpy(videos_np).to(dev)
+    labels = torch.from_numpy(labels_np).to(dev)
+    del videos_np
+    frame_ix = torch.randint(0, t, (EVAL_REALS,),
+                             generator=torch.Generator().manual_seed(0))
+    frames = videos[torch.arange(EVAL_REALS), frame_ix.to(dev)]
+    t1 = time.perf_counter()
+    embedder, emb_params, emb_acc = train_video_embedder(
+        videos, labels, n_classes=64, feature_dim=128, steps=EVAL_STEPS,
+        batch_size=16, device=dev)
+    classifier, cls_params, cls_acc = train_classifier(
+        frames, labels % 8, n_classes=8, steps=EVAL_STEPS, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t1
+    say(f"reals {tuple(videos.shape)} ({videos.numel() * 4 / 1e9:.2f} GB) on "
+        f"the card; embedder and classifier trained {EVAL_STEPS} steps each "
+        f"in {train_s:.1f} s (accuracy {emb_acc:.3f}, {cls_acc:.3f})")
+    feat_err = eval_check(embedder, emb_params, videos[:EVAL_CHECK_CLIPS],
+                          lambda m, p, v: embed_videos(m, p, v, EVAL_CHECK_CLIPS))
+    prob_err = eval_check(classifier, cls_params, frames[:64],
+                          lambda m, p, v: torch.softmax(apply(m, p, v), -1))
+    say(f"card vs CPU float64 (TF32 off, cuDNN deterministic): embedder "
+        f"features of {EVAL_CHECK_CLIPS} clips {feat_err:.3e}, classifier "
+        f"probabilities of 64 frames {prob_err:.3e} (max |diff| / max; tol "
+        f"{TOL_EVAL})")
+    require(feat_err < TOL_EVAL and prob_err < TOL_EVAL,
+            f"eval nets card vs CPU: {feat_err}, {prob_err}")
+
+    gen = generator_for_config(cfg, device=dev).eval()
+    g = torch.Generator(dev).manual_seed(0)
+    # one warm-up pass of every call below (cuDNN's algorithm choice, the
+    # dopri5 solver's first call, LAPACK's), then the timed, counted eval
+    with torch.no_grad():
+        warm = gen.sample_videos(EVAL_CHUNK, generator=g)[0]
+    frechet_distance(*feature_stats(embed_videos(
+        embedder, emb_params, warm[:EVAL_EMB_BS], EVAL_EMB_BS)),
+        *feature_stats(embed_videos(embedder, emb_params,
+                                    videos[:EVAL_EMB_BS], EVAL_EMB_BS)))
+    apply(classifier, cls_params, warm[:, 0])
+    del warm
+    g = torch.Generator(dev).manual_seed(0)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t_eval = time.perf_counter()
+    fakes, sample_ms = [], []
+    with torch.no_grad():
+        for _ in range(EVAL_FAKES // EVAL_CHUNK):
+            a, b = ev(), ev()
+            a.record()
+            fakes.append(gen.sample_videos(EVAL_CHUNK, generator=g)[0])
+            b.record()
+            torch.cuda.synchronize()
+            sample_ms.append(a.elapsed_time(b))
+    fakes = torch.cat(fakes)
+    embed_ms = []
+
+    def embed(x):
+        feats = []
+        for i in range(0, len(x), EVAL_EMB_BS):
+            a, b = ev(), ev()
+            a.record()
+            feats.append(embed_videos(embedder, emb_params,
+                                      x[i:i + EVAL_EMB_BS], EVAL_EMB_BS))
+            b.record()
+            torch.cuda.synchronize()
+            embed_ms.append(a.elapsed_time(b))
+        return torch.cat(feats)
+
+    feats_real = embed(videos[:EVAL_FAKES])
+    feats_fake = embed(fakes)
+    fake_frames = fakes[torch.arange(EVAL_FAKES), frame_ix[:EVAL_FAKES].to(dev)]
+    probs = torch.softmax(apply(classifier, cls_params, fake_frames), -1)
+    torch.cuda.synchronize()
+    t_fvd = time.perf_counter()
+    stats = [feature_stats(f) for f in (feats_real, feats_fake)]
+    fvd_value = frechet_distance(*stats[0], *stats[1])
+    fvd_ms = (time.perf_counter() - t_fvd) * 1e3
+    is_mean, is_std = inception_score(probs)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t_eval
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    k1, k2 = fused_rk4.launches, fused_gru.launches
+    ms64, ms32 = sum(sample_ms) / len(sample_ms), sum(embed_ms) / len(embed_ms)
+    say(f"ucf_wgan_gp_128 eval of {EVAL_FAKES} fakes against {EVAL_FAKES} "
+        f"reals: FVD {fvd_value:.4f}, IS {is_mean:.4f} +- {is_std:.4f}; "
+        f"sample_videos({EVAL_CHUNK}) {ms64:.2f} ms, embed of "
+        f"{EVAL_EMB_BS} clips {ms32:.2f} ms, FVD (stats on the card, the "
+        f"distance on the host in float64) {fvd_ms:.2f} ms; the whole eval "
+        f"{eval_s:.3f} s, {EVAL_FAKES / eval_s:.1f} clips/s scored, peak "
+        f"{peak:.2f} GiB; K1 +{k1}, K2 +{k2}; {card}")
+    require(math.isfinite(fvd_value) and math.isfinite(is_mean)
+            and bool(torch.isfinite(fakes).all()),
+            f"eval not finite: FVD {fvd_value}, IS {is_mean}")
+    require(k1 == 0 and k2 == 0, f"the dopri5 eval launched K1 {k1}, K2 {k2}")
+    out["north_star_geometry"] = {
+        "fvd": fvd_value, "is_mean": is_mean, "is_std": is_std,
+        "embedder_acc": emb_acc, "classifier_acc": cls_acc,
+        "feature_rel_err": feat_err, "prob_rel_err": prob_err,
+        "ms_per_sample_64": ms64, "sample_ms": sample_ms,
+        "ms_per_embed_32": ms32, "fvd_ms": fvd_ms, "eval_seconds": eval_s,
+        "clips_per_s": EVAL_FAKES / eval_s, "peak_gib": peak,
+        "train_seconds": train_s, "k1_launches": k1, "k2_launches": k2}
+    del videos, frames, fakes, gen
+    torch.cuda.empty_cache()
+    say(f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    phase(f"the evaluate command in process: python -m "
+          f"ganode_tpu_torch.evaluate --config ucf_ode --synthetic "
+          f"--n-samples {EVAL_CLI_SAMPLES} --classifier-steps {EVAL_STEPS} on "
+          f"a fresh 2-step full-width run, twice on the same assets")
+    tmp = tempfile.mkdtemp(prefix="ganode_eval_")
+    try:
+        wd, assets = os.path.join(tmp, "run"), os.path.join(tmp, "assets")
+        runner.run_training(get_config("ucf_ode"), wd, steps=2,
+                            synthetic=True, device=dev)
+        argv = ["--config", "ucf_ode", "--workdir", wd, "--synthetic",
+                "--n-samples", str(EVAL_CLI_SAMPLES), "--classifier-steps",
+                str(EVAL_STEPS), "--assets-dir", assets]
+        runs = []
+        for _ in range(2):
+            reset_counts()
+            t1 = time.perf_counter()
+            result = evaluate.main(argv)
+            torch.cuda.synchronize()
+            runs.append((result, fused_rk4.launches, fused_gru.launches,
+                         time.perf_counter() - t1))
+        (r1, k1_1, k2_1, s1), (r2, k1_2, k2_2, s2) = runs
+        with open(os.path.join(wd, "eval.json")) as f:
+            require(json.load(f) == r2, "eval.json is not the second result")
+        want_k1 = EVAL_CLI_SAMPLES // 64
+        say(f"evaluate ucf_ode: run 1 (assets trained) {s1:.1f} s, K1 +{k1_1}, "
+            f"K2 +{k2_1}: {json.dumps(r1)}")
+        say(f"evaluate ucf_ode: run 2 (assets loaded) {s2:.1f} s, K1 +{k1_2}, "
+            f"K2 +{k2_2}: FVD {r2['fvd']}, IS {r2['inception_score_mean']}; "
+            f"{card}")
+        require(list(r1) == JAX_EVAL_KEYS, f"eval.json keys {list(r1)}")
+        require(r1["checkpoint_step"] == 2 and r1["n_fake_videos"] ==
+                EVAL_CLI_SAMPLES and all(
+                    math.isfinite(r[k]) for r in (r1, r2) for k in (
+                        "fvd", "inception_score_mean", "inception_score_std")),
+                f"eval.json values: {r1}, {r2}")
+        require(k1_1 == k1_2 == want_k1 and k2_1 == k2_2 == 0,
+                f"evaluate launched K1 {k1_1}, {k1_2} (want {want_k1}), "
+                f"K2 {k2_1}, {k2_2}")
+        require(r1["classifier_train_acc"] is not None
+                and r2["classifier_train_acc"] is None
+                and r2["embedder_train_acc"] is None
+                and r2["asset_hashes"] == r1["asset_hashes"],
+                f"assets not reloaded unchanged: {r1['asset_hashes']}, "
+                f"{r2['asset_hashes']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["evaluate_cli"] = {"runs": [r1, r2], "seconds": [s1, s2],
+                           "k1_launches": [k1_1, k1_2],
+                           "k2_launches": [k2_1, k2_2]}
+    say(f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     faulthandler.enable()
     phase("watchdog armed: %d s per phase" % WATCHDOG_S)
@@ -2749,6 +2999,7 @@ def main() -> int:
     training["leaky_relu_cost_ms"] = leaky_relu_phase(dev, card)
     training["gres"] = gres_phases(dev, card, events_ms)
     training["odegan"] = odegan_phases(dev, card, events_ms)
+    evaluation = eval_phases(dev, card)
 
     worst = lambda kernel: max(e for (k, _), e in errs.items() if k == kernel)
     record = {"kernels": [
@@ -2826,6 +3077,19 @@ def main() -> int:
         kernel["double_backward_max_rel_err"] = max(
             v for k, v in training["odegan"]["double_backward_err"].items()
             if k.startswith(key))
+    # evaluation: K1 once per sampled 64-clip chunk of an ode config, none on
+    # the dopri5 north star; K2 none
+    cli = evaluation["evaluate_cli"]
+    k1_paths[f"evaluate ucf_ode --n-samples {EVAL_CLI_SAMPLES}, per run"] = \
+        cli["k1_launches"][0]
+    record["kernels"][1]["launches_by_path"][
+        f"evaluate ucf_ode --n-samples {EVAL_CLI_SAMPLES}, per run"] = \
+        cli["k2_launches"][0]
+    geo = evaluation["north_star_geometry"]
+    for kernel, key in zip(record["kernels"], ("k1", "k2")):
+        kernel["launches_by_path"][
+            f"eval ucf_wgan_gp_128, {EVAL_FAKES} fakes"] = geo[f"{key}_launches"]
+    record["evaluation"] = evaluation
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,10 @@ the other direction, in ``ganode_tpu/compat_torch.py``:
 * GRU ``wi``/``wh``/``bi``/``bh`` and the mixture-of-experts field's stacked
   ``expert_w1``/``expert_b1``/``expert_w2``/``expert_b2`` keep their names
   and layout; its ``gate`` is a Dense.
+* The eval nets (``eval/embedder.py``): 2-D and 3-D ``Conv`` and ``Dense``
+  by the rules above, the video classifier's ``head`` a Dense;
+  ``ImageClassifier`` flattens channels-last, as flax does, so its
+  ``Dense_0`` needs no permutation of its rows.
 * ``SNConv`` (``proj_down`` included) and ``SNDense`` kernels follow the
   conv and dense rules; their ``spectral`` collection's ``u`` <-> the
   buffer ``u``.
@@ -48,8 +52,9 @@ _PARAM_TO_TORCH = {"scale": "weight", "bias": "bias", "kernel": "weight",
 # the ODE field's raw HWIO kernels
 _FIELD_KERNELS = ("k0", "k1")
 _SPECTRAL = ("u", "u0", "u1")
-# modules whose 2-D kernel is a Dense's
-_DENSE = ("Dense", "SNDense", "gate")
+# modules whose 2-D kernel is a Dense's (``head``: the video embedder's
+# classification layer, ``ganode_tpu/eval/embedder.py:117``)
+_DENSE = ("Dense", "SNDense", "gate", "head")
 _STAT_TO_TORCH = {"mean": "running_mean", "var": "running_var"}
 
 

@@ -4,6 +4,7 @@ offline dataset preparation, decoding, clip indexing, transforms and the
 native loader wait for ROADMAP M15)."""
 from .rotmnist import RotMNISTImages, RotMNISTVideos, load_rotmnist, rotate_videos
 from .sampling import ArrayClips, ArrayImages, Sampler
+from .shapes import synthetic_moving_shapes
 from .ucf101 import (
     PackedVideoDataset,
     UCF101ClipSampler,
@@ -23,4 +24,5 @@ __all__ = [
     "load_rotmnist",
     "pack_arrays",
     "rotate_videos",
+    "synthetic_moving_shapes",
 ]

@@ -34,6 +34,7 @@ cutout exactly, the colour ops at 1e-6; an ADA step as the training step
 above.
 """
 import copy
+import math
 import os
 
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -633,3 +634,58 @@ def test_an_ada_step_on_the_card_matches_the_cpu_in_float64(cuda,
     for k, v in want_sd.items():
         torch.testing.assert_close(got_sd[k], v, rtol=0, atol=1e-4,
                                    msg=lambda m: f"{k}: {m}")
+
+
+@pytest.mark.parametrize("net", ["classifier", "embedder"])
+def test_an_eval_net_on_the_card_matches_the_cpu_in_float64(card_f32, net):
+    """The IS classifier's probabilities and the FVD embedder's features,
+    seeded weights after 3 training steps on the card, float32 on the card
+    (TF32 off) against float64 on the CPU: max |diff| over the largest
+    magnitude < 1e-4."""
+    from ganode_tpu_torch.eval import embedder as emb
+
+    g = torch.Generator().manual_seed(3)
+    if net == "classifier":
+        x = torch.rand((16, 64, 64, 3), generator=g) * 2 - 1
+        model, params, _ = emb.train_classifier(
+            x, torch.arange(16) % 8, n_classes=8, steps=3, batch_size=8,
+            device=card_f32)
+        run = lambda m, p, v: torch.softmax(emb.apply(m, p, v), -1)
+    else:
+        x = torch.rand((6, 8, 64, 64, 3), generator=g) * 2 - 1
+        model, params, _ = emb.train_video_embedder(
+            x, torch.arange(6) % 4, n_classes=4, feature_dim=16, steps=3,
+            batch_size=4, device=card_f32)
+        run = lambda m, p, v: emb.embed_videos(m, p, v, batch_size=4)
+    got = run(model, params, x).double().cpu()
+    cpu = copy.deepcopy(model).cpu().double()
+    want = run(cpu, {k: v.cpu().double() for k, v in params.items()},
+               x.double())
+    assert got.shape == want.shape
+    assert ((got - want).abs().max() / want.abs().max()) < 1e-4
+
+
+def test_evaluate_on_the_card(cuda, tmp_path):
+    """``python -m ganode_tpu_torch.evaluate`` in process on a tiny
+    ``ucf_ode`` run trained on the card: K1 once per sampled chunk, finite
+    scores, and the assets it trains loaded unchanged by a second run."""
+    from ganode_tpu_torch import evaluate
+
+    sets = ["ngf=8", "ndf=8", "batch_size=4", "d_iters=1"]
+    cfg = get_config("ucf_ode", ngf=8, ndf=8, batch_size=4, d_iters=1)
+    run_training(cfg, str(tmp_path / "run"), steps=2, synthetic=True,
+                 device=cuda)
+    argv = ["--config", "ucf_ode", "--workdir", str(tmp_path / "run"),
+            "--synthetic", "--n-samples", "12", "--batch-size", "4",
+            "--classifier-steps", "2", "--assets-dir", str(tmp_path / "a")]
+    for s in sets:
+        argv += ["--set", s]
+    fused_rk4.launches = 0
+    first = evaluate.main(argv)
+    assert fused_rk4.launches == 3
+    assert first["checkpoint_step"] == 2 and first["n_fake_videos"] == 12
+    assert all(math.isfinite(first[k]) for k in (
+        "fvd", "inception_score_mean", "inception_score_std"))
+    second = evaluate.main(argv)
+    assert second["classifier_train_acc"] is None
+    assert second["asset_hashes"] == first["asset_hashes"]
