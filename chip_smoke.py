@@ -10,9 +10,10 @@ printing one line before the next starts:
    exits non-zero;
 2. prints the card's name and power limit (``nvidia-smi``), torch, CUDA and
    nvcc versions;
-3. builds the kernels from ``ganode_tpu_torch/csrc``, prints the seconds and
-   what ``ptxas -v`` said of each kernel, and requires that the warp
-   variants spill nothing;
+3. builds the kernels from ``ganode_tpu_torch/csrc`` (one ``nvcc`` per
+   source, all started together, linked into one library), prints the
+   seconds and what ``ptxas -v`` said of each kernel, and requires that the
+   warp variants and K3's two tile shapes spill nothing;
 4. holds every variant of K1 (fused RK4) and K2 (fused GRU) against its plain
    PyTorch version on the card: the warp variant at 16 lanes (serving, ragged
    and odd-B shapes) and at 32, the wide variant at a width above 32 and,
@@ -198,9 +199,38 @@ printing one line before the next starts:
     2-step full-width run, twice on one assets directory: ``eval.json``
     with the JAX script's keys and finite scores, K1 +4 (one per 64-clip
     chunk) and K2 +0 each time, the assets trained and saved by the first
-    run and loaded, their hashes unchanged, by the second.
+    run and loaded, their hashes unchanged, by the second;
+41. holds K3 (``deconv_i8``, the int8 transposed conv of
+    ``csrc/int8_deconv.cu``) against its plain version (``F.conv_transpose2d``
+    in float64 on the card, rounded; the CPU's on 2 frames) at every layer of
+    the full-width int8 trunks of ``ucf_ode``, ``mnist_ode`` and
+    ``ucf_wgan_gp_128`` at B' = 64 T frames, random and +-127 codes (sums
+    past 2^24), int32 and the fused float32 epilogue, all bit for bit; times
+    each layer's K3, plain version and cuDNN's bf16 and TF32
+    ``conv_transpose2d`` (the yardstick; the port never calls it) beside
+    the bound (int8 operations at 1,979 TOPS, or bytes);
+42. for each of those three configs, seeded weights with BatchNorm
+    statistics from one train-mode pass: ``quantize_trunk``, static scales
+    from ``calibrate_act_scales``, then ``generate.sample_videos_int8(64)``
+    with dynamic and static scales: K3 +5 / +5 / +6 and K1 +1 / +1 / +0 per
+    call (K2 +0), finite frames in [-1, 1]; the int8 frames against the
+    float trunk's within JAX's bars (max 0.15, mean 0.02; static on fresh z
+    0.2 / 0.02); the int8 state and every layer's codes equal to the CPU's
+    plain int8 path on 2 clips, the frames within 1e-6; ms per
+    ``sample_videos(64)`` float / int8 dynamic / int8 static and per trunk
+    call, peak memory, weight bytes;
+43. writes a synthetic full-width ``mnist_ode`` reference checkpoint (the
+    chechaohp ``torch.save`` format, Adam moments included), runs ``python
+    -m ganode_tpu_torch.import_reference`` and ``python -m
+    ganode_tpu_torch.generate --workdir --int8 --gif`` in child processes:
+    every imported weight, statistic and moment as written, the videos
+    against the same sampling in this process, the GIF against its grid;
+44. traces one int8 ``sample_videos(64)`` of ``ucf_ode`` with
+    ``utils/profiling.trace`` under ``annotate``: the trace names the
+    annotation, K3 and K1; the device's idle share between the call's
+    first and last kernel.
 
-Float32, except phase 20; each of phases 21-40 prints its seconds. Matrix
+Float32, except phase 20; each of phases 21-43 prints its seconds. Matrix
 products run in full float32 (``torch.backends.cuda.matmul.allow_tf32 =
 False``); the correctness checks also turn TF32 off for cuDNN's
 convolutions, and the serving and training times are taken with cuDNN's
@@ -335,11 +365,59 @@ def bound_ms(ops, nbytes):
 
 
 def reset_counts():
-    from ganode_tpu_torch.ops import fused_gru, fused_rk4
+    from ganode_tpu_torch.ops import fused_gru, fused_rk4, quant
 
     for m in (fused_rk4, fused_gru):
         m.launches = 0
         m.launches_by_variant.update(warp=0, wide=0)
+    quant.launches = 0
+
+
+def events_ms(fn, n):
+    """Mean ms per call between CUDA events around n calls: what a caller
+    sees, host overhead included when the card outpaces the host."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def device_ms(fn, n):
+    """Mean device ms per call: the calls are queued behind a spin kernel
+    that outlasts their enqueue, so the events see back-to-back work."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(enqueue_s * 1.5 * 2.0e9) + 1_000_000)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def in_turns(new, old, n):
+    """Device ms of two versions timed new, old, old, new: the means of
+    each side and the four readings in order."""
+    runs = [device_ms(fn, n) for fn in (new, old, old, new)]
+    return (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2, runs
 
 
 def random_batches(cfg, device, seed):
@@ -2687,6 +2765,467 @@ def eval_phases(dev, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The int8 serving trunk (phases 41-44): K3 and the three deconv trunks.
+# ---------------------------------------------------------------------------
+INT8_CONFIGS = ("ucf_ode", "mnist_ode", "ucf_wgan_gp_128")
+# launches per int8 sample_videos(64): K3 once per trunk layer; K1 once on
+# the rk4 motion, never on dopri5 (as in JAX)
+INT8_K3_LAUNCHES = {"ucf_ode": 5, "mnist_ode": 5, "ucf_wgan_gp_128": 6}
+INT8_K1_LAUNCHES = {"ucf_ode": 1, "mnist_ode": 1, "ucf_wgan_gp_128": 0}
+# JAX's bars for int8 frames against the float trunk's
+# (tests/test_ops.py::TestInt8Serving): (max, mean) with dynamic scales,
+# and with static scales calibrated on another batch
+INT8_BARS = {"dynamic": (0.15, 0.02), "static": (0.2, 0.02)}
+# The card's int8 frames against the CPU's plain int8 path on the same
+# latents and scales: the same IEEE operations give the same codes at every
+# layer (0 may differ), so the frames differ only by the two tanh.
+TOL_INT8_CARD_CPU = 1e-6
+INT8_CPU_CLIPS = 2      # clips decoded on the CPU for that check
+PEAK_INT8_OPS_S = 1979e12   # H100 SXM dense int8 tensor-core ops/s
+REFERENCE_EPOCH = 41000
+
+
+def int8_layer_shapes(cfg):
+    """``(B', Hi, Ci4, Co, k, s, p)`` of each K3 call of ``cfg``'s int8
+    trunk in one ``sample_videos(64)``: B' = 64 T frames, the input channels
+    padded to a multiple of 4; the weights' shapes from the trunk built on
+    the meta device."""
+    import torch
+
+    from ganode_tpu_torch.models.mocogan import make_trunk
+    from ganode_tpu_torch.ops.quant import TRUNK_GEOMETRY
+
+    dim_z = cfg.dim_z_content + cfg.dim_z_category + cfg.dim_z_motion
+    with torch.device("meta"):
+        sd = make_trunk(cfg.trunk, cfg.n_channels, cfg.ngf, dim_z).state_dict()
+    b, hw, out = 64 * cfg.video_length, 1, []
+    for name, _, s, p in TRUNK_GEOMETRY[cfg.trunk]:
+        w = sd[f"{name}.weight"]   # (Ci, Co, k, k); Conv_0's (Co, Ci, 1, 1)
+        ci, co = (w.shape[1], w.shape[0]) if name.startswith("Conv_") \
+            else (w.shape[0], w.shape[1])
+        k = w.shape[-1]
+        out.append((b, hw, -(-ci // 4) * 4, co, k, s, p))
+        hw = (hw - 1) * s - 2 * p + k
+    return out
+
+
+def deconv_i8_cost(b, hi, ci4, co, k, s, p):
+    """(operations, bytes) of one K3 call with the float epilogue: 2 per
+    product of the taps that land inside the output (a border tap that
+    falls in the padding is no work), the codes, the packed weights, scale
+    and bias read once and the float32 output written once."""
+    ho = (hi - 1) * s - 2 * p + k
+    taps = sum(1 for i in range(hi) for kk in range(k) if 0 <= i * s - p + kk < ho)
+    ops = 2 * b * taps * taps * ci4 * co
+    nbytes = b * hi * hi * ci4 + k * k * co * ci4 + 8 * co + 4 + 4 * b * ho * ho * co
+    return ops, nbytes
+
+
+def int8_bound_ms(ops, nbytes):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_INT8_OPS_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def synthetic_reference_checkpoint(cfg, seed):
+    """A checkpoint in the reference's ``torch.save`` format ({'epoch',
+    'model_state_dict': [gen, disVid, disImg], 'optimizer_state_dict'}) of
+    ``cfg``'s nets at full width, with seeded values: each port tensor
+    perturbed (BatchNorm statistics drawn) and mapped to its reference key
+    by ``compat_torch``'s rules, each its own inverse; Adam moments for
+    every parameter but the ODE variants' unused inherited ``recurrent`` GRU,
+    which the reference carries without Adam state. -> (ckpt, the port-layout
+    values the import must give: {net: {key: tensor}}, and the moments:
+    {net: {key: (exp_avg, exp_avg_sq)}})."""
+    import torch
+
+    from ganode_tpu_torch import compat_torch
+    from ganode_tpu_torch.train import build_trainer
+
+    g = torch.Generator().manual_seed(seed)
+    rand = lambda shape, scale: torch.randn(shape, generator=g) * scale
+    state = build_trainer(cfg, device="cpu").init_state()
+    mappings = {"gen": compat_torch.generator_mapping(cfg.variant, cfg.trunk),
+                "dis_vid": compat_torch.video_discriminator_mapping(
+                    cfg.video_disc, cfg.video_disc_ksize),
+                "dis_img": compat_torch.image_discriminator_mapping(
+                    cfg.image_disc)}
+    models, opts, values, moments = [], [], {}, {}
+    for net, mapping in mappings.items():
+        sd = getattr(state, net).module.state_dict()
+        ref, mom = {}, {}
+        if net == "gen" and cfg.variant in ("ode", "sde", "cde"):
+            d = cfg.dim_z_motion
+            for leaf, shape in (("weight_ih", (3 * d, d)), ("weight_hh", (3 * d, d)),
+                                ("bias_ih", (3 * d,)), ("bias_hh", (3 * d,))):
+                ref[f"recurrent.{leaf}"] = rand(shape, 0.1)
+        values[net], moments[net] = {}, {}
+        for key, (ref_key, rule) in mapping.items():
+            v = sd[key]
+            if key.endswith("running_var"):
+                new = torch.rand(v.shape, generator=g) + 0.5
+            elif key.endswith("running_mean"):
+                new = rand(v.shape, 0.1)
+            else:
+                new = v + rand(v.shape, 0.01)
+                m = (rand(v.shape, 1e-3), rand(v.shape, 1e-6).abs())
+                moments[net][key] = m
+                mom[ref_key] = tuple(rule(t).contiguous() for t in m)
+            values[net][key] = new
+            ref[ref_key] = rule(new).contiguous()
+            if key.endswith("running_var"):
+                ref[ref_key.replace("running_var", "num_batches_tracked")] = \
+                    torch.tensor(REFERENCE_EPOCH)
+        names = [k for k in ref if not k.endswith(
+            ("running_mean", "running_var", "num_batches_tracked"))]
+        opts.append({"state": {i: {"step": torch.tensor(float(REFERENCE_EPOCH)),
+                                   "exp_avg": mom[k][0], "exp_avg_sq": mom[k][1]}
+                               for i, k in enumerate(names) if k in mom},
+                     "param_groups": [{"lr": cfg.lr, "betas": tuple(cfg.betas),
+                                       "eps": 1e-8, "weight_decay": cfg.weight_decay,
+                                       "amsgrad": False,
+                                       "params": list(range(len(names)))}]})
+        models.append(ref)
+    return ({"epoch": REFERENCE_EPOCH, "model_state_dict": models,
+             "optimizer_state_dict": opts}, values, moments)
+
+
+def int8_phases(dev, card) -> dict:
+    """Phases 41-44 (module docstring): K3 at every full-width layer, int8
+    serving of the three deconv configs, the import and serving commands,
+    and a profiler trace; returns the record's entry."""
+    import glob
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from ganode_tpu_torch.compat import GeneratorSession
+    from ganode_tpu_torch.generate import sample_videos_int8
+    from ganode_tpu_torch.models import generator_for_config
+    from ganode_tpu_torch.ops import fused_gru, fused_rk4, quant
+    from ganode_tpu_torch.train import build_trainer
+    from ganode_tpu_torch.utils import gifs, profiling
+    from ganode_tpu_torch.utils.checkpoint import CheckpointManager
+    from ganode_tpu_torch.utils.config import get_config
+
+    out = {"layers": {}, "serving": {}}
+    t0 = time.perf_counter()
+    phase("K3 deconv_i8 against its plain version (F.conv_transpose2d in "
+          "float64, rounded) at every layer of the full-width int8 trunks of "
+          f"{', '.join(INT8_CONFIGS)} (B' = 64 T frames), random and +-127 "
+          "codes, int32 and the fused float32 epilogue; per layer K3's, the "
+          "plain version's and cuDNN's bf16 and TF32 conv_transpose2d times")
+    g = torch.Generator().manual_seed(41)
+    worst = 0
+    for name in INT8_CONFIGS:
+        cfg = get_config(name)
+        layers = []
+        for (b, hw, ci4, co, k, s, p) in int8_layer_shapes(cfg):
+            peak = 0
+            for extreme in (False, True):
+                if extreme:  # every product 127 * 127 in magnitude
+                    xq = torch.full((b, hw, hw, ci4), 127, dtype=torch.int8)
+                    w = torch.where(torch.rand((k, k, co, ci4), generator=g)
+                                    < 0.25, -127, 127).to(torch.int8)
+                else:
+                    xq = torch.randint(-127, 128, (b, hw, hw, ci4), generator=g,
+                                       dtype=torch.int8)
+                    w = torch.randint(-127, 128, (k, k, co, ci4), generator=g,
+                                      dtype=torch.int8)
+                xq, w = xq.to(dev), w.to(dev)
+                before = quant.launches
+                got = quant.deconv_i8(xq, w, s, p)
+                torch.cuda.synchronize()
+                require(quant.launches == before + 1, "K3's counter did not rise")
+                want = quant.reference_deconv_i8(xq, w, s, p)
+                cpu = quant.reference_deconv_i8(xq[:2].cpu(), w.cpu(), s, p)
+                a = torch.full((), 0.0123, device=dev)
+                sc = torch.rand(co, generator=g).to(dev)
+                bi = torch.randn(co, generator=g).to(dev)
+                gf = quant.deconv_i8(xq, w, s, p, a_scale=a, scale=sc,
+                                     bias=bi, relu=True)
+                wf = torch.relu(want.float() * (a * sc) + bi)
+                bad = (int((got != want).sum()), int((got[:2].cpu() != cpu).sum()),
+                       int((gf != wf).sum()))
+                peak = max(peak, int(want.abs().max()))
+                worst = max(worst, int((got - want).abs().max()))
+                require(bad == (0, 0, 0),
+                        f"K3 {name} {(b, hw, ci4, co, k, s, p)} extreme="
+                        f"{extreme}: mismatches (int32, vs CPU, float) {bad}")
+            n = 10 if b > 1024 else 20
+            k3_ms = device_ms(lambda: quant.deconv_i8(
+                xq, w, s, p, a_scale=a, scale=sc, bias=bi, relu=True), n)
+            plain_ms = events_ms(lambda: quant.reference_deconv_i8(xq, w, s, p), 3)
+            xf = torch.randn((b, ci4, hw, hw), generator=g).to(dev)
+            wt = torch.randn((ci4, co, k, k), generator=g).to(dev)
+            cudnn = {}
+            for tag, dt in (("bf16", torch.bfloat16), ("tf32", torch.float32)):
+                torch.backends.cudnn.allow_tf32 = True
+                xd, wd = xf.to(dt), wt.to(dt)
+                cudnn[tag] = device_ms(lambda: F.conv_transpose2d(
+                    xd, wd, stride=s, padding=p), n)
+            ops, nbytes = deconv_i8_cost(b, hw, ci4, co, k, s, p)
+            bound, by = int8_bound_ms(ops, nbytes)
+            rec = {"shape": [b, hw, ci4, co, k, s, p], "ms": k3_ms,
+                   "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                   "cudnn_bf16_ms": cudnn["bf16"], "cudnn_tf32_ms": cudnn["tf32"],
+                   "gop": ops / 1e9, "mbytes": nbytes / 1e6, "max_abs_sum": peak}
+            layers.append(rec)
+            say(f"K3 {name} B'={b} {hw}x{hw} {ci4}->{co} k{k}s{s}p{p}: exact "
+                f"(random and +-127, |sum| up to {peak}); K3 {k3_ms * 1e3:.1f} "
+                f"us, plain {plain_ms * 1e3:.1f} us, cuDNN bf16 "
+                f"{cudnn['bf16'] * 1e3:.1f} / TF32 {cudnn['tf32'] * 1e3:.1f} us;"
+                f" bound {bound * 1e3:.2f} us ({by}: {ops / 1e9:.1f} GOP, "
+                f"{nbytes / 1e6:.1f} MB); {card}")
+            del xq, w, got, want, gf, wf, xf, wt, xd, wd
+        out["layers"][name] = layers
+        torch.cuda.empty_cache()
+    out["max_abs_err"] = worst
+    say(f"{time.perf_counter() - t0:.1f} s")
+
+    sessions = {}
+    for name in INT8_CONFIGS:
+        t0 = time.perf_counter()
+        cfg = get_config(name)
+        t = cfg.video_length
+        phase(f"serve {name} at full width ({cfg.trunk}, ngf={cfg.ngf}, "
+              f"{cfg.motion_method or 'rk4'} motion) through the int8 trunk: "
+              f"sample_videos(64) float, int8 dynamic and int8 static; counts, "
+              "frames against the float trunk's and the CPU's plain int8 path")
+        gen = generator_for_config(cfg, device=dev)
+        with torch.no_grad():
+            z_cal, _ = gen.sample_z_video(
+                64, t, generator=torch.Generator(dev).manual_seed(7))
+            gen.main.train()
+            gen.main(z_cal)   # non-trivial BatchNorm statistics, as JAX's tests
+            gen.main.eval()
+        sess = GeneratorSession(gen, seed=0, device=dev)
+        qs = quant.quantize_trunk(cfg.trunk, gen.main)
+        scales = quant.calibrate_act_scales(cfg.trunk, gen.main, z_cal)
+        float_bytes = sum(v.numel() * v.element_size()
+                          for v in gen.main.state_dict().values()
+                          if v.is_floating_point())
+        int8_bytes = sum(l[k].numel() * l[k].element_size()
+                         for l in qs["layers"] for k in ("kernel_q", "scale", "bias"))
+        packed_bytes = sum(l["packed"].numel() for l in qs["layers"])
+        counts = {}
+        for mode, sc in (("dynamic", None), ("static", scales)):
+            reset_counts()
+            v = sample_videos_int8(sess, cfg.trunk, qs, 64, act_scales=sc)
+            torch.cuda.synchronize()
+            counts[mode] = (quant.launches, fused_rk4.launches, fused_gru.launches)
+            size = FRAME_SIZE[cfg.trunk]
+            require(tuple(v.shape) == (64, t, size, size, cfg.n_channels)
+                    and bool(torch.isfinite(v).all()) and v.abs().max() <= 1.0,
+                    f"{name} int8 {mode} videos {tuple(v.shape)}")
+            require(counts[mode] == (INT8_K3_LAUNCHES[name],
+                                     INT8_K1_LAUNCHES[name], 0),
+                    f"{name} int8 {mode}: K3, K1, K2 launched {counts[mode]}")
+        with torch.no_grad():
+            z, _ = gen.sample_z_video(64, t, generator=torch.Generator(dev).manual_seed(8))
+            torch.backends.cudnn.allow_tf32 = False
+            want, want_cal = gen.main(z), gen.main(z_cal)
+            errs = {}
+            for mode, zz, ref, sc in (("dynamic", z, want, None),
+                                      ("static", z, want, scales),
+                                      ("static_calibration_batch", z_cal,
+                                       want_cal, scales)):
+                d = (quant.int8_trunk_apply(cfg.trunk, qs, zz, sc) - ref).abs()
+                errs[mode] = (d.max().item(), d.mean().item())
+            # the card against the CPU's plain int8 path, same latents/scales
+            main_cpu = copy.deepcopy(gen.main).cpu()
+            qs_cpu = quant.quantize_trunk(cfg.trunk, main_cpu)
+            state_diff = sum(int((a[k].cpu() != b[k]).sum())
+                             for a, b in zip(qs["layers"], qs_cpu["layers"])
+                             for k in ("kernel_q", "scale", "bias", "packed"))
+            zs = z[:INT8_CPU_CLIPS * t]
+            card_cpu = {}
+            for mode, sc in (("dynamic", None), ("static", scales)):
+                cd, cc = [], []
+                od = quant.int8_trunk_apply(cfg.trunk, qs, zs, sc, codes=cd)
+                oc = quant.int8_trunk_apply(
+                    cfg.trunk, qs_cpu, zs.cpu(),
+                    None if sc is None else [x.cpu() for x in sc], codes=cc)
+                flips = sum(int((a.cpu() != b).sum()) for a, b in zip(cd, cc))
+                card_cpu[mode] = {"flipped_codes": flips,
+                                  "codes": sum(b.numel() for b in cc),
+                                  "max_abs": (od.cpu() - oc).abs().max().item()}
+        for mode, (mx, mean) in errs.items():
+            bar = INT8_BARS["dynamic" if mode != "static" else "static"]
+            require(mx < bar[0] and mean < bar[1],
+                    f"{name} int8 {mode} frames {mx}, {mean} from the float "
+                    f"trunk's (bars {bar})")
+        require(state_diff == 0, f"{name}: the int8 state differs between the "
+                f"card and the CPU in {state_diff} elements")
+        for mode, r in card_cpu.items():
+            require(r["flipped_codes"] == 0 and r["max_abs"] < TOL_INT8_CARD_CPU,
+                    f"{name} int8 {mode} card vs CPU: {r}")
+        torch.backends.cudnn.allow_tf32 = True
+        n = 5 if cfg.trunk == "dcgan128" else 10
+        ms = {"float": events_ms(lambda: sess.sample_videos(64), n),
+              "int8_dynamic": events_ms(lambda: sample_videos_int8(
+                  sess, cfg.trunk, qs, 64), n),
+              "int8_static": events_ms(lambda: sample_videos_int8(
+                  sess, cfg.trunk, qs, 64, act_scales=scales), n)}
+        with torch.no_grad():
+            torch.cuda.reset_peak_memory_stats()
+            trunk_ms = {"float": events_ms(lambda: gen.main(z), n),
+                        "int8_dynamic": events_ms(lambda: quant.int8_trunk_apply(
+                            cfg.trunk, qs, z), n),
+                        "int8_static": events_ms(lambda: quant.int8_trunk_apply(
+                            cfg.trunk, qs, z, scales), n)}
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        k3_sum = sum(l["ms"] for l in out["layers"][name])
+        say(f"{name}: sample_videos(64) float {ms['float']:.3f} ms, int8 "
+            f"dynamic {ms['int8_dynamic']:.3f}, static {ms['int8_static']:.3f} "
+            f"(cuDNN TF32 on); the trunk alone ({64 * t} frames) "
+            f"{trunk_ms['float']:.3f} / {trunk_ms['int8_dynamic']:.3f} / "
+            f"{trunk_ms['int8_static']:.3f} ms, K3's layers alone "
+            f"{k3_sum:.3f} ms; peak {peak:.2f} GiB; {card}")
+        say(f"{name}: int8 frames against the float trunk's (TF32 off), "
+            f"max / mean: dynamic {errs['dynamic'][0]:.4f} / "
+            f"{errs['dynamic'][1]:.5f}, static on fresh z "
+            f"{errs['static'][0]:.4f} / {errs['static'][1]:.5f}, static on its "
+            f"calibration batch {errs['static_calibration_batch'][0]:.4f}; "
+            f"card vs CPU plain int8 ({INT8_CPU_CLIPS * t} frames): flipped "
+            f"codes {card_cpu['dynamic']['flipped_codes']} / "
+            f"{card_cpu['static']['flipped_codes']} of "
+            f"{card_cpu['dynamic']['codes']}, frames within "
+            f"{max(r['max_abs'] for r in card_cpu.values()):.2e}; launches per "
+            f"call K3 {counts['dynamic'][0]}, K1 {counts['dynamic'][1]}, K2 "
+            f"{counts['dynamic'][2]}; weights {float_bytes / 1e6:.2f} MB float"
+            f" -> {int8_bytes / 1e6:.2f} MB int8 (+ {packed_bytes / 1e6:.2f} MB"
+            f" K3-packed); {time.perf_counter() - t0:.1f} s")
+        out["serving"][name] = {
+            "ms_per_sample_64": ms, "trunk_ms": trunk_ms,
+            "k3_layers_ms": k3_sum, "peak_gib": peak,
+            "err_vs_float": errs, "card_vs_cpu": card_cpu,
+            "launches_per_call": {m: dict(zip(("k3", "k1", "k2"), c))
+                                  for m, c in counts.items()},
+            "weight_bytes": {"float": float_bytes, "int8": int8_bytes,
+                             "k3_packed": packed_bytes}}
+        if name == "ucf_ode":
+            sessions[name] = (sess, qs)
+        else:
+            del sess, gen
+        del qs, scales, z, z_cal, want, want_cal
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    phase("the serving commands: a synthetic full-width mnist_ode reference "
+          "checkpoint, python -m ganode_tpu_torch.import_reference, then "
+          "python -m ganode_tpu_torch.generate --workdir --int8 --gif, in "
+          "child processes")
+    cfg = get_config("mnist_ode")
+    tmp = tempfile.mkdtemp(prefix="ganode_import_")
+    try:
+        ckpt, values, moments = synthetic_reference_checkpoint(cfg, seed=43)
+        path = os.path.join(tmp, f"state_normal{REFERENCE_EPOCH}.ckpt")
+        torch.save(ckpt, path)
+        wd = os.path.join(tmp, "run")
+        printed = run_child([sys.executable, "-m",
+                             "ganode_tpu_torch.import_reference", "--ckpt",
+                             path, "--config", "mnist_ode", "--workdir", wd],
+                            "the import_reference command")
+        require(f"imported reference step {REFERENCE_EPOCH}" in printed,
+                f"import_reference printed {printed}")
+        tr = build_trainer(cfg, device=dev)
+        state = CheckpointManager(os.path.join(wd, "checkpoints")).restore(
+            tr.init_state())
+        mism = 0
+        for net, vals in values.items():
+            module = getattr(state, net).module
+            sd = module.state_dict()
+            mism += sum(int((sd[k].cpu() != v).sum()) for k, v in vals.items())
+            params = dict(module.named_parameters())
+            for k, (m, v) in moments[net].items():
+                s = getattr(state, net).opt.state[params[k]]
+                mism += int((s["exp_avg"].cpu() != m).sum()
+                            + (s["exp_avg_sq"].cpu() != v).sum())
+                mism += int(float(s["step"]) != REFERENCE_EPOCH)
+        require(state.step == REFERENCE_EPOCH and mism == 0,
+                f"the imported checkpoint: step {state.step}, {mism} "
+                "elements differ from the reference's")
+        npz, gif = os.path.join(tmp, "v.npz"), os.path.join(tmp, "g.gif")
+        printed = run_child([sys.executable, "-m", "ganode_tpu_torch.generate",
+                             "--config", "mnist_ode", "--workdir", wd, "--int8",
+                             "--num", "16", "--out", npz, "--gif", gif],
+                            "generate --workdir --int8")
+        require(f"restored step {REFERENCE_EPOCH}" in printed,
+                f"generate printed {printed}")
+        videos = np.load(npz)["videos"]
+        sess = GeneratorSession(tr.gen, tr.eval_gen_variables(state), seed=0,
+                                device=dev)
+        qs = quant.quantize_trunk(cfg.trunk, sess.gen.main)
+        want = sample_videos_int8(sess, cfg.trunk, qs, 16).cpu().numpy()
+        diff = np.abs(videos - want)
+        frames = gifs.read_gif(gif)
+        grid = np.repeat(gifs.video_grid(videos, 4), 3, axis=-1)
+        require(videos.shape == (16, 16, 28, 28, 1) and diff.max() < 0.15
+                and diff.mean() < 1e-4,
+                f"served int8 videos {videos.shape}, max {diff.max()}, mean "
+                f"{diff.mean()} from the same sampling in this process")
+        require(frames.shape == grid.shape and np.array_equal(frames, grid),
+                f"GIF {frames.shape} does not decode to the 4x4 grid")
+        seconds = time.perf_counter() - t0
+        say(f"imported a full-width mnist_ode reference checkpoint (step "
+            f"{REFERENCE_EPOCH}, {os.path.getsize(path) / 2 ** 20:.1f} MiB) "
+            f"through the command: every weight, BatchNorm statistic and Adam "
+            f"moment as written; generate --workdir --int8 served it, "
+            f"{videos.shape}, max|diff| {diff.max():.1e} from the same "
+            f"sampling in this process; GIF decoded to its grid exactly; "
+            f"{seconds:.1f} s; {card}")
+        out["commands"] = {"seconds": seconds, "max_abs_vs_process":
+                           float(diff.max()), "ckpt_mib":
+                           os.path.getsize(path) / 2 ** 20}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    phase("profiling.trace of one int8 sample_videos(64) of ucf_ode under "
+          "profiling.annotate")
+    sess, qs = sessions["ucf_ode"]
+    tmp = tempfile.mkdtemp(prefix="ganode_trace_")
+    try:
+        with profiling.trace(tmp):
+            with profiling.annotate("int8 serve ucf_ode"):
+                sample_videos_int8(sess, "dcgan64", qs, 64)
+        files = glob.glob(os.path.join(tmp, "*.pt.trace.json"))
+        require(len(files) == 1, f"trace files {files}")
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        names = [e.get("name", "") for e in events]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        k3_us = sum(e["dur"] for e in kernels if "deconv_i8_kernel" in e["name"])
+        k1_us = sum(e["dur"] for e in kernels if "rk4_warp_kernel" in e["name"])
+        require("int8 serve ucf_ode" in names and k3_us > 0 and k1_us > 0,
+                f"the trace lacks the annotation, K3 or K1 ({len(events)} "
+                "events)")
+        # one stream: the kernels run one after another, so the device is
+        # idle for the span from the first kernel's start to the last one's
+        # end less their durations (the host launching, or waiting)
+        busy = sum(e["dur"] for e in kernels)
+        span = (max(e["ts"] + e["dur"] for e in kernels)
+                - min(e["ts"] for e in kernels))
+        host = [e["dur"] for e in events if e.get("name") == "int8 serve ucf_ode"
+                and e.get("cat") == "user_annotation"]
+        say(f"trace {os.path.basename(files[0])} ({os.path.getsize(files[0])} "
+            f"bytes, {len(events)} events): the annotation, "
+            f"{sum('deconv_i8_kernel' in n for n in names)} K3 kernels "
+            f"({k3_us:.0f} us) and K1 ({k1_us:.0f} us); {len(kernels)} kernels"
+            f" {busy:.0f} us in a device span of {span:.0f} us "
+            f"({1 - busy / span:.1%} idle); the host enqueued the call in "
+            f"{host[0] if host else float('nan'):.0f} us; {card}")
+        out["trace"] = {"k3_us": k3_us, "k1_us": k1_us, "kernel_us": busy,
+                        "kernels": len(kernels), "device_span_us": span,
+                        "idle_share": 1 - busy / span,
+                        "host_call_us": host[0] if host else None,
+                        "events": len(events)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     faulthandler.enable()
     phase("watchdog armed: %d s per phase" % WATCHDOG_S)
@@ -2734,12 +3273,14 @@ def main() -> int:
     for name, info in ptxas.items():
         say(f"  ptxas -v {name}: {info}")
     warp_kernels = {n: i for n, i in ptxas.items() if "_warp_kernel" in n}
-    require(len(warp_kernels) == 4 and len(ptxas) == 6,
+    k3_kernels = {n: i for n, i in ptxas.items() if "deconv_i8_kernel" in n}
+    require(len(warp_kernels) == 4 and len(k3_kernels) == 2
+            and len(ptxas) == 8,
             f"ptxas reported {sorted(ptxas)}: want 2 warp kernels at 16 and 32 "
-            "lanes and 2 wide kernels")
-    for name, info in warp_kernels.items():
+            "lanes, 2 wide kernels and K3's wide and narrow tiles")
+    for name, info in {**warp_kernels, **k3_kernels}.items():
         require(info.get("spill_stores") == 0 and info.get("spill_loads") == 0,
-                f"warp kernel {name} spills: {info}")
+                f"kernel {name} spills: {info}")
 
     g = torch.Generator().manual_seed(0)
 
@@ -2877,46 +3418,6 @@ def main() -> int:
 
     phase("timing (CUDA events, after warm-up)")
 
-    def events_ms(fn, n):
-        """Mean ms per call between CUDA events around n calls: what a caller
-        sees, host overhead included when the card outpaces the host."""
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(n):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / n
-
-    def device_ms(fn, n):
-        """Mean device ms per call: the calls are queued behind a spin kernel
-        that outlasts their enqueue, so the events see back-to-back work."""
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        enqueue_s = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        torch.cuda._sleep(int(enqueue_s * 1.5 * 2.0e9) + 1_000_000)
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(n):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / n
-
-    def in_turns(new, old, n):
-        """Device ms of two versions timed new, old, old, new: the means of
-        each side and the four readings in order."""
-        runs = [device_ms(fn, n) for fn in (new, old, old, new)]
-        return (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2, runs
-
     k1_args = rk4_inputs(64, 16, 16, 16)
     k2_args = gru_inputs(64, 16, 16)
     k1_h = fused_rk4.uniform_step(k1_args[5])
@@ -3000,6 +3501,7 @@ def main() -> int:
     training["gres"] = gres_phases(dev, card, events_ms)
     training["odegan"] = odegan_phases(dev, card, events_ms)
     evaluation = eval_phases(dev, card)
+    int8 = int8_phases(dev, card)
 
     worst = lambda kernel: max(e for (k, _), e in errs.items() if k == kernel)
     record = {"kernels": [
@@ -3090,6 +3592,43 @@ def main() -> int:
         kernel["launches_by_path"][
             f"eval ucf_wgan_gp_128, {EVAL_FAKES} fakes"] = geo[f"{key}_launches"]
     record["evaluation"] = evaluation
+    # the int8 serving trunk: K3 once per layer, K1 once per rk4 call, K2 none
+    serving8 = int8["serving"]
+    for name in INT8_CONFIGS:
+        calls = serving8[name]["launches_per_call"]["dynamic"]
+        for kernel, key in zip(record["kernels"], ("k1", "k2")):
+            kernel["launches_by_path"][
+                f"serve {name} int8 sample_videos(64)"] = calls[key]
+    main_layers = int8["layers"]["ucf_ode"]
+    costs = [deconv_i8_cost(*l["shape"]) for l in main_layers]
+    t_ops = sum(c[0] for c in costs) / PEAK_INT8_OPS_S
+    t_bytes = sum(c[1] for c in costs) / PEAK_BYTES_S
+    layer_sum = lambda key, name="ucf_ode": sum(
+        l[key] for l in int8["layers"][name])
+    record["kernels"].append({
+        "name": "deconv_i8", "route": "cuda",
+        "variant": "wide (Co > 4) and narrow tiles",
+        "source": "ganode_tpu_torch/csrc/int8_deconv.cu",
+        "replaces": "none: ganode_tpu/ops/quant.py:151 (_deconv_i8, XLA's "
+                    "conv_general_dilated; no pallas_call)",
+        "launches": serving8["ucf_ode"]["launches_per_call"]["dynamic"]["k3"],
+        "launches_by_path": {
+            f"serve {name} int8 {mode} sample_videos(64)":
+                serving8[name]["launches_per_call"][mode]["k3"]
+            for name in INT8_CONFIGS for mode in ("dynamic", "static")},
+        "max_abs_err": int8["max_abs_err"],
+        "ms": layer_sum("ms"), "plain_ms": layer_sum("plain_ms"),
+        "bound_ms": layer_sum("bound_ms"),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
+        "cudnn_bf16_ms": layer_sum("cudnn_bf16_ms"),
+        "cudnn_tf32_ms": layer_sum("cudnn_tf32_ms"),
+        "ms_per_call_by_config": {name: layer_sum("ms", name)
+                                  for name in INT8_CONFIGS},
+        "bound_ms_by_config": {name: layer_sum("bound_ms", name)
+                               for name in INT8_CONFIGS},
+        "by_layer": int8["layers"]})
+    record["int8_serving"] = {k: v for k, v in int8.items() if k != "layers"}
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

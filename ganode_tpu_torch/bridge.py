@@ -35,11 +35,21 @@ the other direction, in ``ganode_tpu/compat_torch.py``:
 
 ``num_batches_tracked`` has no JAX counterpart: it is set to 0 on the way in
 and dropped on the way out. Leaves cross as float32, float64 ones as float64.
+
+The int8 serving state (``ops/quant.py``, ``{"layers": [{"kernel_q",
+"scale", "bias"}]}``) crosses with ``int8_state_to_torch`` /
+``int8_state_to_jax``: ``kernel_q`` by the ConvTranspose rule above, flip
+included, int8 kept (``mnist28``'s 1x1 ``Conv_0`` too: K3 runs it as the
+transposed conv with k=1, s=1, p=0, whose ``(Ci, Co, 1, 1)`` layout that
+rule gives); ``scale`` and ``bias`` as they are. On the way in, K3's
+``packed`` copy is made; on the way out it is dropped.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .ops.quant import pack_kernel
 
 _PARAM_TO_TORCH = {"scale": "weight", "bias": "bias", "kernel": "weight",
                    "wi": "wi", "wh": "wh", "bi": "bi", "bh": "bh",
@@ -295,3 +305,26 @@ def odegan_params_to_jax(all_params: dict) -> dict:
     None kept."""
     return {name: None if p is None else torch_to_jax(p)["params"]
             for name, p in all_params.items()}
+
+
+def int8_state_to_torch(qstate: dict) -> dict:
+    """JAX's int8 serving state (numpy leaves) -> the port's, on the CPU."""
+    layers = []
+    for layer in qstate["layers"]:
+        k = np.asarray(layer["kernel_q"])
+        kq = torch.tensor(k[::-1, ::-1].transpose(2, 3, 0, 1).copy())
+        layers.append({"kernel_q": kq,
+                       "scale": torch.tensor(_real(layer["scale"])),
+                       "bias": torch.tensor(_real(layer["bias"])),
+                       "packed": pack_kernel(kq)})
+    return {"layers": layers}
+
+
+def int8_state_to_jax(qstate: dict) -> dict:
+    """The port's int8 serving state -> JAX's (numpy leaves)."""
+    return {"layers": [{
+        "kernel_q": layer["kernel_q"].cpu().numpy().transpose(
+            2, 3, 0, 1)[::-1, ::-1].copy(),
+        "scale": _real(layer["scale"].cpu().numpy()),
+        "bias": _real(layer["bias"].cpu().numpy())}
+        for layer in qstate["layers"]]}

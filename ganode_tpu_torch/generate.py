@@ -2,7 +2,7 @@
 ``scripts/generate.py``).
 
   python -m ganode_tpu_torch.generate --config ucf_ode --num 64 --out v.npz \
-      [--workdir RUN | --weights gen.pt] [--gif grid.gif] \
+      [--workdir RUN | --weights gen.pt] [--gif grid.gif] [--int8] \
       [--set FIELD=VALUE ...] [--video-len 32] [--cpu]
 
 Writes an .npz of videos ``(N, T, H, W, C)`` in [-1, 1] to ``--out`` and an
@@ -16,7 +16,11 @@ overrides must give the run's sizes. ``--weights`` loads a bare generator
 ``ganode_tpu_torch.bridge``). With neither, or a workdir without a
 checkpoint, the generator runs on its seeded initial weights. Runs on the
 CUDA card unless ``--cpu`` is given; with no card and no ``--cpu`` it exits
-with an error. ``--int8`` waits for ROADMAP M16.
+with an error. ``--int8`` decodes the frames through the int8 serving trunk
+(``ops/quant.py``: the served weights quantized once, dynamic activation
+scales, K3 on the card): the same latents as the float path, from
+``sample_z_video``; a GRes trunk, which has no int8 geometry, exits with an
+error.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import torch
 from . import resolve_device
 from .compat import GeneratorSession
 from .models import generator_for_config
+from .ops.quant import int8_trunk_apply, quantize_trunk
 from .train.runner import build_trainer
 from .utils import layout
 from .utils.checkpoint import CheckpointManager
@@ -54,6 +59,21 @@ def _restored(config, workdir, device):
     return trainer.gen, trainer.eval_gen_variables(state)
 
 
+@torch.no_grad()
+def sample_videos_int8(sess: GeneratorSession, trunk: str, qstate: dict,
+                       n: int, video_len=None, act_scales=None) -> torch.Tensor:
+    """The session's next ``n`` clips with the trunk run in int8: the
+    per-frame latents of ``sample_z_video`` (the float path's draws), then
+    ``int8_trunk_apply`` on ``qstate`` (``quantize_trunk``), with dynamic
+    activation scales or the static ``act_scales`` -> videos ``(n, T, H, W,
+    C)`` in [-1, 1]."""
+    video_len = video_len or sess.gen.video_length
+    z, _ = sess.gen.sample_z_video(n, video_len, generator=sess.generator)
+    frames = int8_trunk_apply(trunk, qstate, z, act_scales)  # (n*T, C, H, W)
+    return frames.reshape(n, video_len, *frames.shape[1:]).permute(
+        0, 1, 3, 4, 2)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="python -m ganode_tpu_torch.generate")
     p.add_argument("--config", required=True)
@@ -71,6 +91,10 @@ def main(argv=None):
                      help="port state_dict (.pt) to load into the generator")
     p.add_argument("--set", dest="sets", action="append", default=[],
                    metavar="FIELD=VALUE", help="config overrides")
+    p.add_argument("--int8", action="store_true",
+                   help="run the trunk through the int8-quantized serving "
+                        "path (ops/quant.py, K3 on the card; 4x smaller "
+                        "trunk weights)")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
     args = p.parse_args(argv)
 
@@ -96,12 +120,22 @@ def main(argv=None):
         else:
             print(NO_CHECKPOINT)
     sess = GeneratorSession(gen, state_dict, seed=args.seed, device=device)
+    if args.int8:
+        try:
+            qstate = quantize_trunk(config.trunk, sess.gen.main)
+        except ValueError as e:
+            sys.exit(f"error: {e}")
 
     videos = []
     for j in range(0, args.num, args.batch_size):
         n = min(args.batch_size, args.num - j)
-        v, _ = sess.sample_videos(n, args.video_len)
-        videos.append(layout.video_from_torch(v).cpu().numpy())
+        if args.int8:
+            v = sample_videos_int8(sess, config.trunk, qstate, n,
+                                   args.video_len)
+        else:
+            v, _ = sess.sample_videos(n, args.video_len)
+            v = layout.video_from_torch(v)
+        videos.append(v.cpu().numpy())
     videos = np.concatenate(videos)
     print(f"generated {videos.shape} in [{videos.min():.3f}, "
           f"{videos.max():.3f}] on {device}")

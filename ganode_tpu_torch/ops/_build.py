@@ -1,9 +1,11 @@
-"""Build and bind the port's CUDA kernels (``csrc/motion_kernels.cu``).
+"""Build and bind the port's CUDA kernels (every ``csrc/*.cu``: K1 and K2 in
+``motion_kernels.cu``, K3 in ``int8_deconv.cu``).
 
-The source has a plain C interface. It is compiled once, at first use, by
-``nvcc`` into ``ganode_tpu_torch/_build/libganode_motion_<hash>.so`` (the hash
-covers the source and the flags, so an edited source is rebuilt) and loaded
-with ``ctypes``. The library is written under a temporary name and moved into
+The sources have a plain C interface. At first use each is compiled by its
+own ``nvcc -c``, all started together, and the objects are linked into one
+``ganode_tpu_torch/_build/libganode_kernels_<hash>.so`` (the hash covers the
+sources and the flags, so an edited source is rebuilt), loaded with
+``ctypes``. The library is written under a temporary name and moved into
 place with ``os.replace``, so concurrent builders never see a half-written file
 and no lock file exists. Nothing here runs at import time.
 
@@ -25,10 +27,10 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "motion_kernels.cu"
+SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Set by load_library(): the ctypes handle, and what the build reported.
 _lib = None
@@ -48,7 +50,7 @@ def find_nvcc() -> str:
             return os.path.join(root, "bin", "nvcc")
     raise RuntimeError(
         "nvcc not found (PATH, $CUDA_HOME, $CUDA_PATH, /usr/local/cuda): the "
-        "CUDA toolkit is needed to build ganode_tpu_torch/csrc/motion_kernels.cu")
+        "CUDA toolkit is needed to build the kernels in ganode_tpu_torch/csrc")
 
 
 # Lane counts of the warp variants' row groups (a template parameter of each
@@ -68,24 +70,47 @@ def choose_variant(*widths: int) -> tuple[str, int]:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libganode_motion_{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"libganode_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run(procs: list) -> str:
+    """Wait for every ``(cmd, Popen)`` and return their output; raise with
+    the compiler's output if any failed."""
+    logs, failed = [], []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed (exit {proc.returncode}): "
+                          f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(logs)
+
+
+def _start(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
 
 
 def _compile(out: Path) -> str:
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{log}")
-    _log_path(out).write_text(log)
-    os.replace(tmp, out)
+    tag = f"tmp{os.getpid()}"
+    objs = [out.with_name(f"{out.stem}.{src.stem}.{tag}.o") for src in SOURCES]
+    tmp = out.with_name(f"{out.name}.{tag}")
+    try:
+        log = _run([_start([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+                    for src, obj in zip(SOURCES, objs)])
+        _run([_start([nvcc, "-shared", "-o", str(tmp), *map(str, objs)])])
+        _log_path(out).write_text(log)
+        os.replace(tmp, out)
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
     return log
 
 
@@ -102,6 +127,8 @@ def _bind(lib):
     for name in ("rk4_motion_warp", "rk4_motion_wide", "gru_motion_warp",
                  "gru_motion_wide"):
         getattr(lib, f"ganode_{name}").restype = i32
+    lib.ganode_deconv_i8.argtypes = [vp, vp, vp, i32, vp, vp, vp] + [i32] * 9 + [vp]
+    lib.ganode_deconv_i8.restype = i32
     lib.ganode_error_string.argtypes = [i32]
     lib.ganode_error_string.restype = ctypes.c_char_p
     return lib

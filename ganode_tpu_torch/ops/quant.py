@@ -1,0 +1,305 @@
+"""Int8 post-training quantization of the deconv trunks for serving (twin of
+``ganode_tpu/ops/quant.py``), with K3, the hand-written int8 transposed
+convolution (``csrc/int8_deconv.cu``).
+
+The recipe is the JAX package's: symmetric per-output-channel int8 weights,
+folded once with eval-mode BatchNorm into one float32 multiply and bias per
+channel; symmetric per-tensor int8 activations, dynamic (max-abs of the live
+tensor) or static (``calibrate_act_scales``); exact int32 sums; the crop of
+``mnist28`` and the final tanh in float32.
+
+    qs = quantize_trunk("dcgan64", gen.main)       # once
+    frames = int8_trunk_apply("dcgan64", qs, z)    # z (B', dim_z) -> (B', C, H, W)
+
+Layouts. The int8 state is ``{"layers": [{"kernel_q", "scale", "bias",
+"packed"}, ...]}``: ``kernel_q`` ``(Ci, Co, k, k)`` int8, the
+``ConvTranspose2d`` layout (``mnist28``'s 1x1 ``Conv_0`` too, as the
+transposed conv with k=1, s=1, p=0 it equals), which ``bridge`` maps to and
+from JAX's ``(k, k, Ci, Co)`` with the spatial flip; ``scale`` and ``bias``
+``(Co,)`` float32; ``packed`` ``(k, k, Co, Ci4)`` int8, K3's layout, input
+channels zero-padded to a multiple of 4 so that ``__dp4a`` reads 4 at a time.
+Between layers the activations are NHWC, their int8 codes padded the same
+way.
+
+Numerics kept from JAX, because a one-ulp change before a ``round`` flips an
+int8 code: every division is an IEEE division, by a tensor on the same
+device (PyTorch's CUDA ``tensor / python_float`` multiplies by the
+reciprocal instead, which the CPU does not); ``torch.round`` rounds half to
+even as ``jnp.round`` does; the dynamic scale stays a 0-d tensor on the
+device (no host sync per layer); the epilogue keeps JAX's order,
+``y * (a_scale * scale) + bias``, unfused. So the CPU, the card and JAX
+give the same codes.
+
+``deconv_i8`` launches K3 on CUDA tensors (or raises: there is no float
+fallback) and runs ``reference_deconv_i8``, the plain version, on CPU
+tensors: ``F.conv_transpose2d`` in float64, exact since every sum stays far
+below 2^53.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+__all__ = ["TRUNK_GEOMETRY", "calibrate_act_scales", "deconv_i8",
+           "int8_trunk_apply", "pack_kernel", "quantize_trunk",
+           "reference_deconv_i8"]
+
+# (conv name, BatchNorm name or None, stride, torch padding) per layer, as
+# in JAX (ganode_tpu/ops/quant.py:43); every conv has k = 4 but Conv_0 (k = 1).
+TRUNK_GEOMETRY: Dict[str, List[Tuple[str, Optional[str], int, int]]] = {
+    "dcgan64": [("ConvTranspose_0", "BatchNorm_0", 1, 0),
+                ("ConvTranspose_1", "BatchNorm_1", 2, 1),
+                ("ConvTranspose_2", "BatchNorm_2", 2, 1),
+                ("ConvTranspose_3", "BatchNorm_3", 2, 1),
+                ("ConvTranspose_4", None, 2, 1)],
+    "dcgan128": [("ConvTranspose_0", "BatchNorm_0", 1, 0),
+                 ("ConvTranspose_1", "BatchNorm_1", 2, 1),
+                 ("ConvTranspose_2", "BatchNorm_2", 2, 1),
+                 ("ConvTranspose_3", "BatchNorm_3", 2, 1),
+                 ("ConvTranspose_4", "BatchNorm_4", 2, 1),
+                 ("ConvTranspose_5", None, 2, 1)],
+    # mnist28 ends in a 1x1 conv + 2px crop (the reference's k1s1p2 deconv)
+    "mnist28": [("ConvTranspose_0", "BatchNorm_0", 1, 0),
+                ("ConvTranspose_1", "BatchNorm_1", 2, 1),
+                ("ConvTranspose_2", "BatchNorm_2", 2, 1),
+                ("ConvTranspose_3", "BatchNorm_3", 2, 1),
+                ("Conv_0", None, 1, 0)],
+}
+
+# K3 launches since the last reset; chip_smoke.py reads it to show the int8
+# serving path went through the kernel.
+launches = 0
+
+
+def _state_dict(trunk) -> dict:
+    return trunk.state_dict() if isinstance(trunk, torch.nn.Module) else trunk
+
+
+def _deconv_weight(sd: dict, name: str) -> torch.Tensor:
+    """A layer's float weight in the ``ConvTranspose2d`` layout ``(Ci, Co, k,
+    k)``: ``Conv_0``'s ``(Co, Ci, 1, 1)`` transposed."""
+    w = sd[f"{name}.weight"].float()
+    return w.transpose(0, 1) if name.startswith("Conv_") else w
+
+
+def _fold_bn(sd: dict, name: str, eps: float = 1e-5):
+    """Eval-mode BatchNorm as ``(scale, bias)`` per channel, from the running
+    statistics (eps 1e-5, as in JAX). The square root is the correctly
+    rounded float32 one, as XLA's and the card's are, taken in float64:
+    torch's float32 ``sqrt`` on the CPU is off by an ulp on some inputs, and
+    the scale fixes every int8 code downstream."""
+    root = torch.sqrt((sd[f"{name}.running_var"].float() + eps).double()).float()
+    inv = sd[f"{name}.weight"].float() / root
+    return inv, sd[f"{name}.bias"].float() - sd[f"{name}.running_mean"].float() * inv
+
+
+def _over_127(t: torch.Tensor) -> torch.Tensor:
+    """``t / 127`` as an IEEE division on any device, floored at 1e-12."""
+    return torch.clamp_min(t / torch.full_like(t, 127.0), 1e-12)
+
+
+def _quantize_kernel(w: torch.Tensor):
+    """``(Ci, Co, k, k)`` float32 -> (int8 kernel, per-Co float32 scale)."""
+    s = _over_127(w.abs().amax(dim=(0, 2, 3)))
+    q = torch.clamp(torch.round(w / s[None, :, None, None]), -127, 127)
+    return q.to(torch.int8), s
+
+
+def _ci4(c: int) -> int:
+    return -(-c // 4) * 4
+
+
+def pack_kernel(kernel_q: torch.Tensor) -> torch.Tensor:
+    """``kernel_q`` ``(Ci, Co, k, k)`` int8 -> K3's ``(k, k, Co, Ci4)``, the
+    input channels zero-padded to a multiple of 4."""
+    ci = kernel_q.shape[0]
+    w = kernel_q.permute(2, 3, 1, 0)
+    return F.pad(w, (0, _ci4(ci) - ci)).contiguous()
+
+
+def quantize_trunk(trunk_name: str, trunk) -> Dict[str, list]:
+    """Fold a trunk's float32 weights (the module, in eval mode, or its
+    ``state_dict``) into the int8 serving state, on their device.
+
+    Per layer: the int8 kernel, one per-channel multiply (weight scale x
+    folded BatchNorm scale) and a bias; the last layer's bias is zero."""
+    if trunk_name not in TRUNK_GEOMETRY:
+        raise ValueError(
+            f"no int8 geometry for trunk {trunk_name!r} "
+            f"(have {sorted(TRUNK_GEOMETRY)}); the GRes trunks are "
+            "spectral-norm f32 by design")
+    sd = _state_dict(trunk)
+    layers = []
+    for conv_name, bn_name, _, _ in TRUNK_GEOMETRY[trunk_name]:
+        kq, ks = _quantize_kernel(_deconv_weight(sd, conv_name))
+        if bn_name is not None:
+            bn_scale, bias = _fold_bn(sd, bn_name)
+            scale = ks * bn_scale
+        else:
+            scale, bias = ks, torch.zeros_like(ks)
+        layers.append({"kernel_q": kq, "scale": scale, "bias": bias,
+                       "packed": pack_kernel(kq)})
+    return {"layers": layers}
+
+
+def _act_quantize(x: torch.Tensor, scale: Optional[torch.Tensor] = None):
+    """Symmetric int8 activation quantization -> (codes, scale): ``scale``
+    None is dynamic, the max-abs of ``x`` over 127 (a 0-d tensor on ``x``'s
+    device); a calibrated static scale clips what lies beyond it."""
+    s = _over_127(x.abs().amax()) if scale is None else scale
+    return torch.clamp(torch.round(x / s), -127, 127).to(torch.int8), s
+
+
+def calibrate_act_scales(trunk_name: str, trunk, z: torch.Tensor
+                         ) -> List[torch.Tensor]:
+    """Per-layer static activation scales from one latent batch ``z (B',
+    dim_z)`` on the trunk's device: the eval-mode trunk replayed in float32
+    with the folded BatchNorm (cuDNN's TF32 off on the card), recording each
+    layer's input max-abs over 127 (0-d tensors on that device)."""
+    sd = _state_dict(trunk)
+    geometry = TRUNK_GEOMETRY[trunk_name]
+    h = z.float()[:, :, None, None]
+    scales = []
+    cudnn = torch.backends.cudnn
+    with torch.no_grad(), cudnn.flags(
+            enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+            deterministic=cudnn.deterministic, allow_tf32=False):
+        for i, (conv_name, bn_name, stride, pad) in enumerate(geometry):
+            scales.append(_over_127(h.abs().amax()))
+            y = F.conv_transpose2d(h, _deconv_weight(sd, conv_name),
+                                   stride=stride, padding=pad)
+            if bn_name is not None:
+                bn_scale, bn_bias = _fold_bn(sd, bn_name)
+                y = y * bn_scale[:, None, None] + bn_bias[:, None, None]
+            h = F.relu(y) if i < len(geometry) - 1 else y
+    return scales
+
+
+def reference_deconv_i8(xq: torch.Tensor, packed: torch.Tensor, stride: int,
+                        pad: int) -> torch.Tensor:
+    """K3's plain version: ``xq (B, Hi, Wi, Ci4)`` int8 NHWC and ``packed (k,
+    k, Co, Ci4)`` int8 -> the int32 sums ``(B, Ho, Wo, Co)`` of the
+    transposed conv with torch's ``(k, s, p)``, computed by
+    ``F.conv_transpose2d`` in float64 on the inputs' device and rounded:
+    exact, every product and partial sum being an integer below 2^53."""
+    x = xq.permute(0, 3, 1, 2).double()
+    w = packed.permute(3, 2, 0, 1).double()
+    y = F.conv_transpose2d(x, w, stride=stride, padding=pad)
+    return torch.round(y).to(torch.int32).permute(0, 2, 3, 1).contiguous()
+
+
+def _check_deconv(xq, packed, stride, pad, epilogue):
+    if xq.dtype != torch.int8 or packed.dtype != torch.int8:
+        raise TypeError(f"deconv_i8 takes int8 codes, got {xq.dtype} and "
+                        f"{packed.dtype}")
+    if xq.ndim != 4 or packed.ndim != 4:
+        raise ValueError(f"xq must be (B, Hi, Wi, Ci4) and packed (k, k, Co, "
+                         f"Ci4), got {tuple(xq.shape)} and {tuple(packed.shape)}")
+    k, k2, co, ci4 = packed.shape
+    if k != k2 or xq.shape[3] != ci4 or ci4 % 4 or min(xq.shape) < 1 or co < 1:
+        raise ValueError(f"shapes {tuple(xq.shape)} and {tuple(packed.shape)} "
+                         "do not make a deconv (square kernel, Ci4 a multiple "
+                         "of 4 on both)")
+    _, hi, wi, _ = xq.shape
+    ho, wo = (hi - 1) * stride - 2 * pad + k, (wi - 1) * stride - 2 * pad + k
+    if stride < 1 or pad < 0 or ho < 1 or wo < 1:
+        raise ValueError(f"stride {stride}, padding {pad} give no output")
+    for name, t in (("xq", xq), ("packed", packed), *epilogue.items()):
+        if t is None:
+            raise ValueError(f"the epilogue needs {name}")
+        if t.device != xq.device:
+            raise ValueError(f"{name} is on {t.device}, xq on {xq.device}")
+    for name, t in epilogue.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if epilogue and (epilogue["a_scale"].numel() != 1
+                     or epilogue["scale"].shape != (co,)
+                     or epilogue["bias"].shape != (co,)):
+        raise ValueError(f"a_scale must hold one value, scale and bias {co}")
+    return ho, wo
+
+
+def _launch(xq, packed, stride, pad, ho, wo, epilogue, relu):
+    """Launch K3 on validated CUDA inputs."""
+    global launches
+    _build.check_current_device(xq.device)
+    lib = _build.load_library()
+    b, hi, wi, ci4 = xq.shape
+    k, _, co, _ = packed.shape
+    xq, packed = xq.contiguous(), packed.contiguous()
+    out = torch.empty((b, ho, wo, co), device=xq.device,
+                      dtype=torch.float32 if epilogue else torch.int32)
+    if max(xq.numel(), out.numel(), packed.numel()) >= 2 ** 31:
+        raise ValueError("deconv_i8 takes tensors of fewer than 2^31 elements")
+    e = [t.contiguous() for t in (epilogue["a_scale"], epilogue["scale"],
+                                  epilogue["bias"])] if epilogue else []
+    ptrs = [t.data_ptr() for t in e] or [None] * 3
+    err = lib.ganode_deconv_i8(xq.data_ptr(), packed.data_ptr(), out.data_ptr(),
+                               int(bool(epilogue)), *ptrs, int(relu), b, hi,
+                               wi, ci4, co, k, stride, pad,
+                               _build.raw_stream(xq.device))
+    _build.check(err, "deconv_i8")
+    launches += 1
+    return out
+
+
+def deconv_i8(xq: torch.Tensor, packed: torch.Tensor, stride: int, pad: int,
+              *, a_scale: Optional[torch.Tensor] = None,
+              scale: Optional[torch.Tensor] = None,
+              bias: Optional[torch.Tensor] = None,
+              relu: bool = False) -> torch.Tensor:
+    """The int8 transposed conv ``xq (B, Hi, Wi, Ci4)`` x ``packed (k, k, Co,
+    Ci4)`` -> ``(B, Ho, Wo, Co)``, NHWC: the int32 sums, or with ``a_scale``
+    (0-d), ``scale`` and ``bias`` (``(Co,)``, float32) the float32
+    ``y * (a_scale * scale) + bias``, ReLU'd when ``relu``.
+
+    CUDA tensors launch K3 (no synchronisation) on the current CUDA device,
+    which must be theirs, or raise; CPU tensors run ``reference_deconv_i8``
+    and the epilogue as plain float32 tensor ops, in JAX's order."""
+    epilogue = {} if a_scale is None and scale is None and bias is None else \
+        {"a_scale": a_scale, "scale": scale, "bias": bias}
+    ho, wo = _check_deconv(xq, packed, stride, pad, epilogue)
+    if xq.device.type == "cuda":
+        return _launch(xq, packed, stride, pad, ho, wo, epilogue, relu)
+    if xq.device.type != "cpu":
+        raise ValueError(f"deconv_i8 runs on cuda or cpu, not {xq.device}")
+    y = reference_deconv_i8(xq, packed, stride, pad)
+    if not epilogue:
+        return y
+    h = y.float() * (a_scale * scale) + bias
+    return F.relu(h) if relu else h
+
+
+def int8_trunk_apply(trunk_name: str, qstate: Dict[str, list], z: torch.Tensor,
+                     act_scales: Optional[List[torch.Tensor]] = None, *,
+                     codes: Optional[list] = None) -> torch.Tensor:
+    """``z (B', dim_z)`` -> frames ``(B', C, H, W)`` in [-1, 1] through the
+    int8 trunk (a permuted view of channels-last memory, which the videos'
+    ``(n, T, H, W, C)`` layout reads without a copy): per layer the
+    activation codes (dynamic, or
+    the static ``act_scales`` of ``calibrate_act_scales``), one ``deconv_i8``
+    with the fused epilogue and ReLU but on the last layer; then the
+    ``mnist28`` crop and tanh in float32. ``codes``, a list, receives each
+    layer's int8 input, for counting codes that differ between two runs."""
+    geometry = TRUNK_GEOMETRY[trunk_name]
+    h = z.float()[:, None, None, :]
+    n_layers = len(geometry)
+    for i, ((_, _, stride, pad), layer) in enumerate(zip(geometry,
+                                                         qstate["layers"])):
+        hq, a_scale = _act_quantize(
+            h, None if act_scales is None else act_scales[i])
+        ci4 = layer["packed"].shape[-1]
+        if hq.shape[-1] != ci4:
+            hq = F.pad(hq, (0, ci4 - hq.shape[-1]))
+        if codes is not None:
+            codes.append(hq)
+        h = deconv_i8(hq, layer["packed"], stride, pad, a_scale=a_scale,
+                      scale=layer["scale"], bias=layer["bias"],
+                      relu=i < n_layers - 1)
+    if trunk_name == "mnist28":
+        h = h[:, 2:-2, 2:-2, :]  # the k1s1p2 crop
+    return torch.tanh(h).permute(0, 3, 1, 2)

@@ -23,6 +23,10 @@ is held against the plain recurrence at 1e-5 of each tensor's largest
 value. The GResBlock trunks (plain convolutions, as in JAX) are held, float32 on
 the card against float64 on the CPU at 1e-4 of each tensor's largest value,
 their gradients in float64 on both at 1e-8 of the largest gradient.
+K3, the int8 transposed conv, must equal its plain version (float64,
+rounded) bit for bit at every geometry of the int8 trunks, ±127 inputs
+included, and the int8 trunk on the card the CPU's plain int8 path: the
+same int8 codes at every layer, the frames within 1e-6 (the two tanh).
 The SDE, CDE, ODE-RNN and MoE-ODE samplers (no kernel, as in JAX) are held,
 float32 on the card against float64 on the CPU, at 1e-4. The spectral-norm
 critics and the gradient penalty (no kernel of their own:
@@ -50,6 +54,8 @@ from ganode_tpu_torch.ops import (
     reference_gru_motion,
     reference_rk4_motion,
 )
+from ganode_tpu_torch.models import generator_for_config
+from ganode_tpu_torch.ops import quant
 from ganode_tpu_torch.train import build_trainer, run_training, runner
 from ganode_tpu_torch.utils.config import get_config
 
@@ -128,6 +134,64 @@ def test_each_variant_at_the_serving_shape(cuda, variant):
     torch.cuda.synchronize()
     torch.testing.assert_close(got_rk4, reference_rk4_motion(*rk4), rtol=0, atol=1e-5)
     torch.testing.assert_close(got_gru, reference_gru_motion(*gru), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,hw,ci4,co,k,s,p", [
+    (70, 1, 68, 130, 4, 1, 0), (9, 4, 64, 64, 4, 2, 1),
+    (5, 7, 32, 3, 4, 2, 1), (3, 6, 12, 1, 1, 1, 0), (2, 2, 2048, 70, 4, 2, 1)])
+@pytest.mark.parametrize("extreme", [False, True])
+def test_int8_deconv_kernel_matches_plain(cuda, b, hw, ci4, co, k, s, p,
+                                          extreme):
+    g = torch.Generator().manual_seed(b + co)
+    if extreme:  # sums past 2^24
+        xq = torch.full((b, hw, hw, ci4), 127, dtype=torch.int8)
+        w = torch.full((k, k, co, ci4), -127, dtype=torch.int8)
+    else:
+        xq = torch.randint(-127, 128, (b, hw, hw, ci4), generator=g,
+                           dtype=torch.int8)
+        w = torch.randint(-127, 128, (k, k, co, ci4), generator=g,
+                          dtype=torch.int8)
+    before = quant.launches
+    got = quant.deconv_i8(xq.to(cuda), w.to(cuda), s, p)
+    torch.cuda.synchronize()
+    assert quant.launches == before + 1
+    want = quant.reference_deconv_i8(xq, w, s, p)
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+    if extreme and ci4 == 2048:
+        assert want.abs().max() > 2 ** 24
+    scale, bias = torch.rand(co, generator=g), torch.randn(co, generator=g)
+    a = torch.tensor(0.0123)
+    got = quant.deconv_i8(xq.to(cuda), w.to(cuda), s, p, a_scale=a.to(cuda),
+                          scale=scale.to(cuda), bias=bias.to(cuda), relu=True)
+    want = quant.deconv_i8(xq, w, s, p, a_scale=a, scale=scale, bias=bias,
+                           relu=True)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("name", ["ucf_ode", "mnist_ode", "ucf_wgan_gp_128"])
+def test_the_int8_trunk_on_the_card_matches_the_cpu(cuda, name):
+    cfg = get_config(name, ngf=16)
+    gen = generator_for_config(cfg, device="cpu").eval()
+    with torch.no_grad():
+        z, _ = gen.sample_z_video(2, 8, generator=torch.Generator().manual_seed(1))
+        gen.main.train()
+        gen.main(z)    # non-trivial BatchNorm statistics
+        gen.main.eval()
+    states = {d: quant.quantize_trunk(cfg.trunk, copy.deepcopy(gen.main).to(d))
+              for d in ("cpu", cuda)}
+    scales = quant.calibrate_act_scales(cfg.trunk, gen.main, z)
+    for static in (None, scales):
+        codes = {}
+        out = {}
+        for d in ("cpu", cuda):
+            codes[d] = []
+            out[d] = quant.int8_trunk_apply(
+                cfg.trunk, states[d], z.to(d),
+                None if static is None else [s.to(d) for s in static],
+                codes=codes[d]).cpu()
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(codes[cuda],
+                                                           codes["cpu"]))
+        assert (out[cuda] - out["cpu"]).abs().max() < 1e-6
 
 
 def test_gradients_through_the_kernels(cuda):
