@@ -13,7 +13,8 @@ printing one line before the next starts:
 3. builds the kernels from ``ganode_tpu_torch/csrc`` (one ``nvcc`` per
    source, all started together, linked into one library), prints the
    seconds and what ``ptxas -v`` said of each kernel, and requires that the
-   warp variants and K3's two tile shapes spill nothing;
+   warp variants and K3's kernels (four tensor-core tiles, two bytes
+   kernels) spill nothing;
 4. holds every variant of K1 (fused RK4) and K2 (fused GRU) against its plain
    PyTorch version on the card: the warp variant at 16 lanes (serving, ragged
    and odd-B shapes) and at 32, the wide variant at a width above 32 and,
@@ -200,15 +201,18 @@ printing one line before the next starts:
     with the JAX script's keys and finite scores, K1 +4 (one per 64-clip
     chunk) and K2 +0 each time, the assets trained and saved by the first
     run and loaded, their hashes unchanged, by the second;
-41. holds K3 (``deconv_i8``, the int8 transposed conv of
-    ``csrc/int8_deconv.cu``) against its plain version (``F.conv_transpose2d``
-    in float64 on the card, rounded; the CPU's on 2 frames) at every layer of
-    the full-width int8 trunks of ``ucf_ode``, ``mnist_ode`` and
-    ``ucf_wgan_gp_128`` at B' = 64 T frames, random and +-127 codes (sums
-    past 2^24), int32 and the fused float32 epilogue, all bit for bit; times
-    each layer's K3, plain version and cuDNN's bf16 and TF32
-    ``conv_transpose2d`` (the yardstick; the port never calls it) beside
-    the bound (int8 operations at 1,979 TOPS, or bytes);
+41. requires warpgroup MMA (``GMMA``) in the SASS of K3's tensor-core
+    kernel (``cuobjdump -sass``); holds K3 (``deconv_i8``, the int8
+    transposed conv of ``csrc/int8_deconv.cu``) against its plain version
+    (``F.conv_transpose2d`` in float64 on the card, rounded; the CPU's on 2
+    frames) at every layer of the full-width int8 trunks of ``ucf_ode``,
+    ``mnist_ode`` and ``ucf_wgan_gp_128`` at B' = 64 T frames and at the
+    card tests' shapes that cross tile edges, random and +-127 codes (sums
+    past 2^24), int32 and the fused float32 epilogue, all bit for bit;
+    times each layer's K3, plain version, cuDNN's bf16 and TF32
+    ``conv_transpose2d`` and ``torch._int_mm`` on the layer's dense GEMM
+    (yardsticks; the port never calls them) beside the bound (int8
+    operations at 1,979 TOPS, or bytes);
 42. for each of those three configs, seeded weights with BatchNorm
     statistics from one train-mode pass: ``quantize_trunk``, static scales
     from ``calibrate_act_scales``, then ``generate.sample_videos_int8(64)``
@@ -218,7 +222,8 @@ printing one line before the next starts:
     0.2 / 0.02); the int8 state and every layer's codes equal to the CPU's
     plain int8 path on 2 clips, the frames within 1e-6; ms per
     ``sample_videos(64)`` float / int8 dynamic / int8 static and per trunk
-    call, peak memory, weight bytes;
+    call, peak memory, weight bytes (the int8 state's tensors on the card,
+    each layer's kernel once);
 43. writes a synthetic full-width ``mnist_ode`` reference checkpoint (the
     chechaohp ``torch.save`` format, Adam moments included), runs ``python
     -m ganode_tpu_torch.import_reference`` and ``python -m
@@ -390,9 +395,11 @@ def events_ms(fn, n):
     return a.elapsed_time(b) / n
 
 
-def device_ms(fn, n):
+def device_ms(fn, n, with_host=False):
     """Mean device ms per call: the calls are queued behind a spin kernel
-    that outlasts their enqueue, so the events see back-to-back work."""
+    that outlasts their enqueue, so the events see back-to-back work. With
+    ``with_host``, (device ms, the host's µs per call while the card is
+    busy)."""
     import torch
 
     for _ in range(3):
@@ -406,11 +413,14 @@ def device_ms(fn, n):
     torch.cuda._sleep(int(enqueue_s * 1.5 * 2.0e9) + 1_000_000)
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
+    t0 = time.perf_counter()
     for _ in range(n):
         fn()
+    host_s = time.perf_counter() - t0
     b.record()
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / n
+    ms = a.elapsed_time(b) / n
+    return (ms, host_s / n * 1e6) if with_host else ms
 
 
 def in_turns(new, old, n):
@@ -2783,14 +2793,17 @@ INT8_BARS = {"dynamic": (0.15, 0.02), "static": (0.2, 0.02)}
 TOL_INT8_CARD_CPU = 1e-6
 INT8_CPU_CLIPS = 2      # clips decoded on the CPU for that check
 PEAK_INT8_OPS_S = 1979e12   # H100 SXM dense int8 tensor-core ops/s
+# K3's kernels in the build: deconv_i8_kernel_tc<BN, BK> and
+# deconv_i8_kernel_bytes<k, s, p> (csrc/int8_deconv.cu)
+K3_TC_VARIANTS, K3_BYTES_VARIANTS = 4, 2
 REFERENCE_EPOCH = 41000
 
 
 def int8_layer_shapes(cfg):
-    """``(B', Hi, Ci4, Co, k, s, p)`` of each K3 call of ``cfg``'s int8
-    trunk in one ``sample_videos(64)``: B' = 64 T frames, the input channels
-    padded to a multiple of 4; the weights' shapes from the trunk built on
-    the meta device."""
+    """``(B', Hi, Ci, Co, k, s, p)`` of each K3 call of ``cfg``'s int8
+    trunk in one ``sample_videos(64)``: B' = 64 T frames, the layer's own
+    input channels (the trunk feeds K3 its codes zero-padded to the plan's
+    ``ci4``); the weights' shapes from the trunk built on the meta device."""
     import torch
 
     from ganode_tpu_torch.models.mocogan import make_trunk
@@ -2805,20 +2818,22 @@ def int8_layer_shapes(cfg):
         ci, co = (w.shape[1], w.shape[0]) if name.startswith("Conv_") \
             else (w.shape[0], w.shape[1])
         k = w.shape[-1]
-        out.append((b, hw, -(-ci // 4) * 4, co, k, s, p))
+        out.append((b, hw, ci, co, k, s, p))
         hw = (hw - 1) * s - 2 * p + k
     return out
 
 
-def deconv_i8_cost(b, hi, ci4, co, k, s, p):
-    """(operations, bytes) of one K3 call with the float epilogue: 2 per
-    product of the taps that land inside the output (a border tap that
-    falls in the padding is no work), the codes, the packed weights, scale
-    and bias read once and the float32 output written once."""
+def deconv_i8_cost(b, hi, ci, co, k, s, p):
+    """(operations, bytes) of one K3 call with the float epilogue over the
+    layer's ``ci`` real input channels (the zeros K3's channel padding adds
+    are no work of the function): 2 per product of the taps that land inside
+    the output (a border tap that falls in the padding is no work), the
+    codes, the weights, scale and bias read once and the float32 output
+    written once."""
     ho = (hi - 1) * s - 2 * p + k
     taps = sum(1 for i in range(hi) for kk in range(k) if 0 <= i * s - p + kk < ho)
-    ops = 2 * b * taps * taps * ci4 * co
-    nbytes = b * hi * hi * ci4 + k * k * co * ci4 + 8 * co + 4 + 4 * b * ho * ho * co
+    ops = 2 * b * taps * taps * ci * co
+    nbytes = b * hi * hi * ci + k * k * co * ci + 8 * co + 4 + 4 * b * ho * ho * co
     return ops, nbytes
 
 
@@ -2890,6 +2905,203 @@ def synthetic_reference_checkpoint(cfg, seed):
              "optimizer_state_dict": opts}, values, moments)
 
 
+def k3_sass(lib_path) -> dict:
+    """Per K3 kernel in the built library, whether its SASS holds
+    warpgroup MMA instructions (``GMMA``: IGMMA for s8), from
+    ``cuobjdump -sass``."""
+    from ganode_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    found, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            if "deconv_i8_kernel" in name:
+                found[name] = False
+        elif name in found and "GMMA" in line:
+            found[name] = True
+    return found
+
+
+def int_mm_ms(b, hi, ci, co, k, s, p, g, dev, n):
+    """torch._int_mm (cuBLASLt's int8 GEMM; the port never calls it) on the
+    dense GEMM of one K3 layer with Co >= 8, per parity class: M = B' Ho Wo
+    / s^2, N = Co, K = taps Ci4, Ci padded to 32 as K3 reads it (the 1x1
+    first layer: M = B', N = k^2 Co, K = Ci4, the GEMM K3 runs), times the
+    s^2 classes; None where _int_mm refuses the shape."""
+    import torch
+
+    ho = (hi - 1) * s - 2 * p + k
+    ci4 = -(-ci // 32) * 32   # as K3 reads the channels (_int_mm: K % 8 == 0)
+    if hi == 1 and p == 0:
+        m, nn, kk, classes = b, k * k * co, ci4, 1
+    else:
+        taps = (-(-k // s)) ** 2
+        m, nn, kk, classes = b * ho * ho // (s * s), co, taps * ci4, s * s
+    a = torch.randint(-127, 128, (m, kk), generator=g, dtype=torch.int8).to(dev)
+    w = torch.randint(-127, 128, (nn, kk), generator=g, dtype=torch.int8).to(dev)
+    try:
+        torch._int_mm(a, w.t())
+    except RuntimeError as e:
+        say(f"  torch._int_mm refuses ({m}, {kk}) x ({kk}, {nn}): {str(e)[:120]}")
+        return None
+    return classes * device_ms(lambda: torch._int_mm(a, w.t()), n)
+
+
+# K3's shapes that cross tile edges, as tests/test_torch_cuda.py has them:
+# (B, Hi, Ci4, Co, k, s, p)
+K3_EDGE_SHAPES = [(70, 1, 68, 130, 4, 1, 0), (9, 4, 64, 64, 4, 2, 1),
+                  (5, 7, 32, 3, 4, 2, 1), (3, 6, 12, 1, 1, 1, 0),
+                  (2, 2, 2048, 70, 4, 2, 1), (3, 5, 64, 96, 4, 2, 1),
+                  (2, 4, 64, 200, 4, 2, 1), (1, 130, 32, 16, 4, 2, 1),
+                  (4, 3, 20, 40, 4, 2, 1), (2, 5, 32, 5, 3, 2, 1),
+                  (2, 3, 32, 16, 1, 2, 0), (3, 1, 64, 24, 4, 1, 1)]
+
+
+def k3_codes(shape, extreme, g):
+    """Random int8 codes for one K3 call, or +-127 ones (every product
+    127^2 in magnitude, a quarter of the weights negative)."""
+    import torch
+
+    b, hw, ci4, co, k, s, p = shape
+    if extreme:
+        xq = torch.full((b, hw, hw, ci4), 127, dtype=torch.int8)
+        w = torch.where(torch.rand((k, k, co, ci4), generator=g) < 0.25,
+                        -127, 127).to(torch.int8)
+    else:
+        xq = torch.randint(-127, 128, (b, hw, hw, ci4), generator=g,
+                           dtype=torch.int8)
+        w = torch.randint(-127, 128, (k, k, co, ci4), generator=g,
+                          dtype=torch.int8)
+    return xq, w
+
+
+def k3_exact(xq, w, s, p, g, dev, what) -> tuple:
+    """K3 on the card against its plain version there and on the CPU (2
+    frames), int32 and the fused epilogue, all bit for bit; -> (the plain
+    sums' largest magnitude, K3's largest error, the epilogue's inputs)."""
+    import torch
+
+    from ganode_tpu_torch.ops import quant
+
+    co = w.shape[2]
+    before = quant.launches
+    got = quant.deconv_i8(xq, w, s, p)
+    torch.cuda.synchronize()
+    require(quant.launches == before + 1, "K3's counter did not rise")
+    want = quant.reference_deconv_i8(xq, w, s, p)
+    cpu = quant.reference_deconv_i8(xq[:2].cpu(), w.cpu(), s, p)
+    a = torch.full((), 0.0123, device=dev)
+    sc = torch.rand(co, generator=g).to(dev)
+    bi = torch.randn(co, generator=g).to(dev)
+    gf = quant.deconv_i8(xq, w, s, p, a_scale=a, scale=sc, bias=bi, relu=True)
+    wf = torch.relu(want.float() * (a * sc) + bi)
+    bad = (int((got != want).sum()), int((got[:2].cpu() != cpu).sum()),
+           int((gf != wf).sum()))
+    require(bad == (0, 0, 0), f"K3 {what}: mismatches (int32, vs CPU, float) {bad}")
+    err = int((got.long() - want.long()).abs().max())
+    return int(want.abs().max()), err, (a, sc, bi)
+
+
+def k3_layer_phase(dev, card) -> dict:
+    """Phase 41 (module docstring): K3's SASS, K3 bit for bit at every
+    full-width layer and edge shape, and per layer the times; returns
+    ``{"layers": {config: [...]}, "max_abs_err", "sass", "edge_shapes"}``."""
+    import torch
+    import torch.nn.functional as F
+
+    from ganode_tpu_torch.ops import _build, quant
+    from ganode_tpu_torch.utils.config import get_config
+
+    out = {"layers": {}}
+    t0 = time.perf_counter()
+    phase("K3 deconv_i8: warpgroup MMA (GMMA) in the SASS of its tensor-core "
+          "kernel; against its plain version (F.conv_transpose2d in float64, "
+          "rounded) at every layer of the full-width int8 trunks of "
+          f"{', '.join(INT8_CONFIGS)} (B' = 64 T frames) and at "
+          f"{len(K3_EDGE_SHAPES)} shapes that cross tile edges, random and "
+          "+-127 codes, int32 and the fused float32 epilogue; per layer K3's, "
+          "the plain version's, cuDNN's bf16 and TF32 conv_transpose2d and "
+          "torch._int_mm's times")
+    sass = k3_sass(_build.library_path())
+    for name, has in sass.items():
+        say(f"  SASS {name}: {'GMMA' if has else 'no GMMA'}")
+    tc = {n: h for n, h in sass.items() if "deconv_i8_kernel_tc" in n}
+    require(tc and all(tc.values()),
+            f"K3's tensor-core kernels without warpgroup MMA in SASS: {sass}")
+    out["sass"] = {"tensor_core_kernels": len(tc), "with_gmma": sum(tc.values())}
+    g = torch.Generator().manual_seed(41)
+    worst = 0
+    for shape in K3_EDGE_SHAPES:
+        b, hw, ci4, co, k, s, p = shape
+        for extreme in (False, True):
+            xq, w = (t.to(dev) for t in k3_codes(shape, extreme, g))
+            _, err, _ = k3_exact(xq, w, s, p, g, dev,
+                                 f"edge {shape} extreme={extreme}")
+            worst = max(worst, err)
+    say(f"K3 exact at the {len(K3_EDGE_SHAPES)} edge shapes, random and +-127")
+    out["edge_shapes"] = len(K3_EDGE_SHAPES)
+    for name in INT8_CONFIGS:
+        cfg = get_config(name)
+        layers = []
+        for shape in int8_layer_shapes(cfg):
+            b, hw, ci, co, k, s, p = shape
+            plan = quant.k3_plan(b, hw, hw, ci, co, k, s, p)
+            peak = 0
+            for extreme in (False, True):
+                # the codes and weights zero-padded to K3's channels, as the
+                # trunk holds them
+                xq, w = (F.pad(t, (0, plan.ci4 - ci)).to(dev)
+                         for t in k3_codes(shape, extreme, g))
+                top, err, (a, sc, bi) = k3_exact(
+                    xq, w, s, p, g, dev, f"{name} {shape} extreme={extreme}")
+                peak, worst = max(peak, top), max(worst, err)
+            n = 10 if b > 1024 else 20
+            k3_ms = device_ms(lambda: quant.deconv_i8(
+                xq, w, s, p, a_scale=a, scale=sc, bias=bi, relu=True), n)
+            plain_ms = events_ms(lambda: quant.reference_deconv_i8(xq, w, s, p), 3)
+            xf = torch.randn((b, ci, hw, hw), generator=g).to(dev)
+            wt = torch.randn((ci, co, k, k), generator=g).to(dev)
+            cudnn = {}
+            for tag, dt in (("bf16", torch.bfloat16), ("tf32", torch.float32)):
+                torch.backends.cudnn.allow_tf32 = True
+                xd, wd = xf.to(dt), wt.to(dt)
+                cudnn[tag] = device_ms(lambda: F.conv_transpose2d(
+                    xd, wd, stride=s, padding=p), n)
+            imm = int_mm_ms(b, hw, ci, co, k, s, p, g, dev, n) if co >= 8 else None
+            ops, nbytes = deconv_i8_cost(b, hw, ci, co, k, s, p)
+            bound, by = int8_bound_ms(ops, nbytes)
+            rec = {"shape": [b, hw, ci, co, k, s, p], "ci4": plan.ci4,
+                   "route": plan.route,
+                   "ms": k3_ms, "plain_ms": plain_ms, "bound_ms": bound,
+                   "bound_by": by, "of_bound": bound / k3_ms,
+                   "cudnn_bf16_ms": cudnn["bf16"], "cudnn_tf32_ms": cudnn["tf32"],
+                   "int_mm_ms": imm, "gop": ops / 1e9, "mbytes": nbytes / 1e6,
+                   "max_abs_sum": peak}
+            layers.append(rec)
+            say(f"K3 {name} B'={b} {hw}x{hw} {ci}->{co} k{k}s{s}p{p}, read as "
+                f"{plan.ci4} channels "
+                f"({plan.route}{', one-tap GEMM' if plan.gemm else ''}): exact "
+                f"(random and +-127, |sum| up to {peak}); K3 {k3_ms * 1e3:.1f} "
+                f"us, plain {plain_ms * 1e3:.1f} us, cuDNN bf16 "
+                f"{cudnn['bf16'] * 1e3:.1f} / TF32 {cudnn['tf32'] * 1e3:.1f} us,"
+                f" _int_mm {'-' if imm is None else f'{imm * 1e3:.1f}'} us; "
+                f"bound {bound * 1e3:.2f} us ({by}: {ops / 1e9:.1f} GOP, "
+                f"{nbytes / 1e6:.1f} MB), {bound / k3_ms:.1%} of it; {card}")
+            del xq, w, xf, wt, xd, wd
+        out["layers"][name] = layers
+        k3_sum = sum(l["ms"] for l in layers)
+        say(f"K3 {name}: {k3_sum:.3f} ms per int8 sample_videos(64) summed "
+            f"over layers; cuDNN bf16 {sum(l['cudnn_bf16_ms'] for l in layers):.3f}"
+            f" ms, bound {sum(l['bound_ms'] for l in layers):.3f} ms")
+        torch.cuda.empty_cache()
+    out["max_abs_err"] = worst
+    say(f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def int8_phases(dev, card) -> dict:
     """Phases 41-44 (module docstring): K3 at every full-width layer, int8
     serving of the three deconv configs, the import and serving commands,
@@ -2898,7 +3110,6 @@ def int8_phases(dev, card) -> dict:
 
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
     from ganode_tpu_torch.compat import GeneratorSession
     from ganode_tpu_torch.generate import sample_videos_int8
@@ -2910,79 +3121,7 @@ def int8_phases(dev, card) -> dict:
     from ganode_tpu_torch.utils.config import get_config
 
     out = {"layers": {}, "serving": {}}
-    t0 = time.perf_counter()
-    phase("K3 deconv_i8 against its plain version (F.conv_transpose2d in "
-          "float64, rounded) at every layer of the full-width int8 trunks of "
-          f"{', '.join(INT8_CONFIGS)} (B' = 64 T frames), random and +-127 "
-          "codes, int32 and the fused float32 epilogue; per layer K3's, the "
-          "plain version's and cuDNN's bf16 and TF32 conv_transpose2d times")
-    g = torch.Generator().manual_seed(41)
-    worst = 0
-    for name in INT8_CONFIGS:
-        cfg = get_config(name)
-        layers = []
-        for (b, hw, ci4, co, k, s, p) in int8_layer_shapes(cfg):
-            peak = 0
-            for extreme in (False, True):
-                if extreme:  # every product 127 * 127 in magnitude
-                    xq = torch.full((b, hw, hw, ci4), 127, dtype=torch.int8)
-                    w = torch.where(torch.rand((k, k, co, ci4), generator=g)
-                                    < 0.25, -127, 127).to(torch.int8)
-                else:
-                    xq = torch.randint(-127, 128, (b, hw, hw, ci4), generator=g,
-                                       dtype=torch.int8)
-                    w = torch.randint(-127, 128, (k, k, co, ci4), generator=g,
-                                      dtype=torch.int8)
-                xq, w = xq.to(dev), w.to(dev)
-                before = quant.launches
-                got = quant.deconv_i8(xq, w, s, p)
-                torch.cuda.synchronize()
-                require(quant.launches == before + 1, "K3's counter did not rise")
-                want = quant.reference_deconv_i8(xq, w, s, p)
-                cpu = quant.reference_deconv_i8(xq[:2].cpu(), w.cpu(), s, p)
-                a = torch.full((), 0.0123, device=dev)
-                sc = torch.rand(co, generator=g).to(dev)
-                bi = torch.randn(co, generator=g).to(dev)
-                gf = quant.deconv_i8(xq, w, s, p, a_scale=a, scale=sc,
-                                     bias=bi, relu=True)
-                wf = torch.relu(want.float() * (a * sc) + bi)
-                bad = (int((got != want).sum()), int((got[:2].cpu() != cpu).sum()),
-                       int((gf != wf).sum()))
-                peak = max(peak, int(want.abs().max()))
-                worst = max(worst, int((got - want).abs().max()))
-                require(bad == (0, 0, 0),
-                        f"K3 {name} {(b, hw, ci4, co, k, s, p)} extreme="
-                        f"{extreme}: mismatches (int32, vs CPU, float) {bad}")
-            n = 10 if b > 1024 else 20
-            k3_ms = device_ms(lambda: quant.deconv_i8(
-                xq, w, s, p, a_scale=a, scale=sc, bias=bi, relu=True), n)
-            plain_ms = events_ms(lambda: quant.reference_deconv_i8(xq, w, s, p), 3)
-            xf = torch.randn((b, ci4, hw, hw), generator=g).to(dev)
-            wt = torch.randn((ci4, co, k, k), generator=g).to(dev)
-            cudnn = {}
-            for tag, dt in (("bf16", torch.bfloat16), ("tf32", torch.float32)):
-                torch.backends.cudnn.allow_tf32 = True
-                xd, wd = xf.to(dt), wt.to(dt)
-                cudnn[tag] = device_ms(lambda: F.conv_transpose2d(
-                    xd, wd, stride=s, padding=p), n)
-            ops, nbytes = deconv_i8_cost(b, hw, ci4, co, k, s, p)
-            bound, by = int8_bound_ms(ops, nbytes)
-            rec = {"shape": [b, hw, ci4, co, k, s, p], "ms": k3_ms,
-                   "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                   "cudnn_bf16_ms": cudnn["bf16"], "cudnn_tf32_ms": cudnn["tf32"],
-                   "gop": ops / 1e9, "mbytes": nbytes / 1e6, "max_abs_sum": peak}
-            layers.append(rec)
-            say(f"K3 {name} B'={b} {hw}x{hw} {ci4}->{co} k{k}s{s}p{p}: exact "
-                f"(random and +-127, |sum| up to {peak}); K3 {k3_ms * 1e3:.1f} "
-                f"us, plain {plain_ms * 1e3:.1f} us, cuDNN bf16 "
-                f"{cudnn['bf16'] * 1e3:.1f} / TF32 {cudnn['tf32'] * 1e3:.1f} us;"
-                f" bound {bound * 1e3:.2f} us ({by}: {ops / 1e9:.1f} GOP, "
-                f"{nbytes / 1e6:.1f} MB); {card}")
-            del xq, w, got, want, gf, wf, xf, wt, xd, wd
-        out["layers"][name] = layers
-        torch.cuda.empty_cache()
-    out["max_abs_err"] = worst
-    say(f"{time.perf_counter() - t0:.1f} s")
+    out.update(k3_layer_phase(dev, card))
 
     sessions = {}
     for name in INT8_CONFIGS:
@@ -3006,9 +3145,14 @@ def int8_phases(dev, card) -> dict:
         float_bytes = sum(v.numel() * v.element_size()
                           for v in gen.main.state_dict().values()
                           if v.is_floating_point())
-        int8_bytes = sum(l[k].numel() * l[k].element_size()
-                         for l in qs["layers"] for k in ("kernel_q", "scale", "bias"))
-        packed_bytes = sum(l["packed"].numel() for l in qs["layers"])
+        # what the int8 state holds on the card: every tensor, by storage
+        on_card = [v for l in qs["layers"] for v in l.values()
+                   if isinstance(v, torch.Tensor) and v.device.type == "cuda"]
+        int8_bytes = sum(v.untyped_storage().nbytes() for v in on_card)
+        kernel_bytes = sum(v.untyped_storage().nbytes() for v in on_card
+                           if v.dtype == torch.int8)
+        require(kernel_bytes == sum(l["packed"].numel() for l in qs["layers"]),
+                f"{name}: the int8 state holds more than one copy of its kernels")
         counts = {}
         for mode, sc in (("dynamic", None), ("static", scales)):
             reset_counts()
@@ -3036,9 +3180,9 @@ def int8_phases(dev, card) -> dict:
             # the card against the CPU's plain int8 path, same latents/scales
             main_cpu = copy.deepcopy(gen.main).cpu()
             qs_cpu = quant.quantize_trunk(cfg.trunk, main_cpu)
-            state_diff = sum(int((a[k].cpu() != b[k]).sum())
+            state_diff = sum(int((a[k].cpu() != b[k]).sum()) + (a["ci"] != b["ci"])
                              for a, b in zip(qs["layers"], qs_cpu["layers"])
-                             for k in ("kernel_q", "scale", "bias", "packed"))
+                             for k in ("packed", "scale", "bias"))
             zs = z[:INT8_CPU_CLIPS * t]
             card_cpu = {}
             for mode, sc in (("dynamic", None), ("static", scales)):
@@ -3095,16 +3239,17 @@ def int8_phases(dev, card) -> dict:
             f"{max(r['max_abs'] for r in card_cpu.values()):.2e}; launches per "
             f"call K3 {counts['dynamic'][0]}, K1 {counts['dynamic'][1]}, K2 "
             f"{counts['dynamic'][2]}; weights {float_bytes / 1e6:.2f} MB float"
-            f" -> {int8_bytes / 1e6:.2f} MB int8 (+ {packed_bytes / 1e6:.2f} MB"
-            f" K3-packed); {time.perf_counter() - t0:.1f} s")
+            f" -> {int8_bytes / 1e6:.2f} MB int8 on the card, {kernel_bytes / 1e6:.2f}"
+            f" MB of it the kernels, once, in K3's packing; "
+            f"{time.perf_counter() - t0:.1f} s")
         out["serving"][name] = {
             "ms_per_sample_64": ms, "trunk_ms": trunk_ms,
             "k3_layers_ms": k3_sum, "peak_gib": peak,
             "err_vs_float": errs, "card_vs_cpu": card_cpu,
             "launches_per_call": {m: dict(zip(("k3", "k1", "k2"), c))
                                   for m, c in counts.items()},
-            "weight_bytes": {"float": float_bytes, "int8": int8_bytes,
-                             "k3_packed": packed_bytes}}
+            "weight_bytes": {"float": float_bytes, "int8_on_card": int8_bytes,
+                             "int8_kernels": kernel_bytes}}
         if name == "ucf_ode":
             sessions[name] = (sess, qs)
         else:
@@ -3273,11 +3418,17 @@ def main() -> int:
     for name, info in ptxas.items():
         say(f"  ptxas -v {name}: {info}")
     warp_kernels = {n: i for n, i in ptxas.items() if "_warp_kernel" in n}
-    k3_kernels = {n: i for n, i in ptxas.items() if "deconv_i8_kernel" in n}
-    require(len(warp_kernels) == 4 and len(k3_kernels) == 2
-            and len(ptxas) == 8,
+    k3_tc = {n: i for n, i in ptxas.items() if "deconv_i8_kernel_tc" in n}
+    k3_bytes = {n: i for n, i in ptxas.items() if "deconv_i8_kernel_bytes" in n}
+    k3_kernels = {**k3_tc, **k3_bytes}
+    require(len(warp_kernels) == 4 and len(k3_tc) == K3_TC_VARIANTS
+            and len(k3_bytes) == K3_BYTES_VARIANTS and len(ptxas) == 6
+            + K3_TC_VARIANTS + K3_BYTES_VARIANTS,
             f"ptxas reported {sorted(ptxas)}: want 2 warp kernels at 16 and 32 "
-            "lanes, 2 wide kernels and K3's wide and narrow tiles")
+            f"lanes, 2 wide kernels, K3's {K3_TC_VARIANTS} tensor-core tiles "
+            f"(N 64, 128 x K chunk 32, 128 channels) and its "
+            f"{K3_BYTES_VARIANTS} bytes kernels ((k, s, p, Co) = (4, 2, 1, 3), "
+            "(1, 1, 0, 1))")
     for name, info in {**warp_kernels, **k3_kernels}.items():
         require(info.get("spill_stores") == 0 and info.get("spill_loads") == 0,
                 f"kernel {name} spills: {info}")
@@ -3607,7 +3758,8 @@ def main() -> int:
         l[key] for l in int8["layers"][name])
     record["kernels"].append({
         "name": "deconv_i8", "route": "cuda",
-        "variant": "wide (Co > 4) and narrow tiles",
+        "variant": "tensor-core implicit GEMM (wgmma s8 over TMA tiles, "
+                   "Co >= 8) and the bytes kernel (Co < 8)",
         "source": "ganode_tpu_torch/csrc/int8_deconv.cu",
         "replaces": "none: ganode_tpu/ops/quant.py:151 (_deconv_i8, XLA's "
                     "conv_general_dilated; no pallas_call)",
@@ -3623,6 +3775,8 @@ def main() -> int:
         "library_ms": None,
         "cudnn_bf16_ms": layer_sum("cudnn_bf16_ms"),
         "cudnn_tf32_ms": layer_sum("cudnn_tf32_ms"),
+        "int_mm_ms_co_ge_8": sum(l["int_mm_ms"] or 0.0
+                                 for l in int8["layers"]["ucf_ode"]),
         "ms_per_call_by_config": {name: layer_sum("ms", name)
                                   for name in INT8_CONFIGS},
         "bound_ms_by_config": {name: layer_sum("bound_ms", name)

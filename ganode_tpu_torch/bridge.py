@@ -36,20 +36,22 @@ the other direction, in ``ganode_tpu/compat_torch.py``:
 ``num_batches_tracked`` has no JAX counterpart: it is set to 0 on the way in
 and dropped on the way out. Leaves cross as float32, float64 ones as float64.
 
-The int8 serving state (``ops/quant.py``, ``{"layers": [{"kernel_q",
-"scale", "bias"}]}``) crosses with ``int8_state_to_torch`` /
+The int8 serving state (JAX's ``{"layers": [{"kernel_q", "scale",
+"bias"}]}``; the port's ``{"layers": [{"packed", "ci", "scale", "bias"}]}``,
+``ops/quant.py``) crosses with ``int8_state_to_torch`` /
 ``int8_state_to_jax``: ``kernel_q`` by the ConvTranspose rule above, flip
 included, int8 kept (``mnist28``'s 1x1 ``Conv_0`` too: K3 runs it as the
 transposed conv with k=1, s=1, p=0, whose ``(Ci, Co, 1, 1)`` layout that
-rule gives); ``scale`` and ``bias`` as they are. On the way in, K3's
-``packed`` copy is made; on the way out it is dropped.
+rule gives), packed into K3's layout on the way in and unpacked from it on
+the way out (the port holds each kernel once); ``scale`` and ``bias`` as
+they are.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .ops.quant import pack_kernel
+from .ops.quant import pack_kernel, unpack_kernel
 
 _PARAM_TO_TORCH = {"scale": "weight", "bias": "bias", "kernel": "weight",
                    "wi": "wi", "wh": "wh", "bi": "bi", "bh": "bh",
@@ -313,17 +315,16 @@ def int8_state_to_torch(qstate: dict) -> dict:
     for layer in qstate["layers"]:
         k = np.asarray(layer["kernel_q"])
         kq = torch.tensor(k[::-1, ::-1].transpose(2, 3, 0, 1).copy())
-        layers.append({"kernel_q": kq,
+        layers.append({"packed": pack_kernel(kq), "ci": kq.shape[0],
                        "scale": torch.tensor(_real(layer["scale"])),
-                       "bias": torch.tensor(_real(layer["bias"])),
-                       "packed": pack_kernel(kq)})
+                       "bias": torch.tensor(_real(layer["bias"]))})
     return {"layers": layers}
 
 
 def int8_state_to_jax(qstate: dict) -> dict:
     """The port's int8 serving state -> JAX's (numpy leaves)."""
     return {"layers": [{
-        "kernel_q": layer["kernel_q"].cpu().numpy().transpose(
+        "kernel_q": unpack_kernel(layer).cpu().numpy().transpose(
             2, 3, 0, 1)[::-1, ::-1].copy(),
         "scale": _real(layer["scale"].cpu().numpy()),
         "bias": _real(layer["bias"].cpu().numpy())}

@@ -166,8 +166,9 @@ class MotionODE(nn.Module):
             x0 = draw_normal((n, self.dim), generator, l0.weight.device)
         x = self.WarmupMLP_0(x0) if self.use_warmup else x0
         # built on the CPU: the kernel and the solvers read their times on
-        # the host
-        ts = torch.linspace(0.0, 1.0, video_len)
+        # the host; float64 for a float64 solve, as JAX's under x64
+        ts = torch.linspace(0.0, 1.0, video_len, dtype=torch.float64
+                            if x.dtype == torch.float64 else torch.float32)
         params = _mlp_params(self.ode_fn)
         if self.uses_kernel:
             zs = fused_rk4_motion(x, l0.weight.t().contiguous(), l0.bias,

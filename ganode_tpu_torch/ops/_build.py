@@ -31,6 +31,8 @@ SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# K3 encodes its TMA descriptors with the driver's cuTensorMapEncodeTiled
+LINK_FLAGS = ("-lcuda",)
 
 # Set by load_library(): the ctypes handle, and what the build reported.
 _lib = None
@@ -70,7 +72,7 @@ def choose_variant(*widths: int) -> tuple[str, int]:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in SOURCES:
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     return BUILD_DIR / f"libganode_kernels_{h.hexdigest()[:16]}.so"
@@ -105,7 +107,8 @@ def _compile(out: Path) -> str:
     try:
         log = _run([_start([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
                     for src, obj in zip(SOURCES, objs)])
-        _run([_start([nvcc, "-shared", "-o", str(tmp), *map(str, objs)])])
+        _run([_start([nvcc, "-shared", "-o", str(tmp), *map(str, objs),
+                      *LINK_FLAGS])])
         _log_path(out).write_text(log)
         os.replace(tmp, out)
     finally:
@@ -127,7 +130,8 @@ def _bind(lib):
     for name in ("rk4_motion_warp", "rk4_motion_wide", "gru_motion_warp",
                  "gru_motion_wide"):
         getattr(lib, f"ganode_{name}").restype = i32
-    lib.ganode_deconv_i8.argtypes = [vp, vp, vp, i32, vp, vp, vp] + [i32] * 9 + [vp]
+    lib.ganode_deconv_i8.argtypes = [vp, vp, vp, i32, vp, vp, vp, i32,
+                                     ctypes.POINTER(i32), vp]
     lib.ganode_deconv_i8.restype = i32
     lib.ganode_error_string.argtypes = [i32]
     lib.ganode_error_string.restype = ctypes.c_char_p

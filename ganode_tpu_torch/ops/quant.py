@@ -11,15 +11,16 @@ tensor) or static (``calibrate_act_scales``); exact int32 sums; the crop of
     qs = quantize_trunk("dcgan64", gen.main)       # once
     frames = int8_trunk_apply("dcgan64", qs, z)    # z (B', dim_z) -> (B', C, H, W)
 
-Layouts. The int8 state is ``{"layers": [{"kernel_q", "scale", "bias",
-"packed"}, ...]}``: ``kernel_q`` ``(Ci, Co, k, k)`` int8, the
-``ConvTranspose2d`` layout (``mnist28``'s 1x1 ``Conv_0`` too, as the
+Layouts. The int8 state is ``{"layers": [{"packed", "ci", "scale",
+"bias"}, ...]}``, each layer's int8 kernel held once: ``packed`` ``(k, k,
+Co, Ci4)`` int8, K3's layout, the input channels zero-padded to a multiple
+of 32 (``Ci4``: TMA wants 16-byte strides and the tensor cores 32-byte
+steps of K), ``ci`` the true input channel count; ``scale`` and ``bias``
+``(Co,)`` float32. ``unpack_kernel`` derives from it the ``ConvTranspose2d``
+layout ``(Ci, Co, k, k)`` (``mnist28``'s 1x1 ``Conv_0`` too, as the
 transposed conv with k=1, s=1, p=0 it equals), which ``bridge`` maps to and
-from JAX's ``(k, k, Ci, Co)`` with the spatial flip; ``scale`` and ``bias``
-``(Co,)`` float32; ``packed`` ``(k, k, Co, Ci4)`` int8, K3's layout, input
-channels zero-padded to a multiple of 4 so that ``__dp4a`` reads 4 at a time.
-Between layers the activations are NHWC, their int8 codes padded the same
-way.
+from JAX's ``kernel_q`` ``(k, k, Ci, Co)`` with the spatial flip. Between
+layers the activations are NHWC, their int8 codes padded the same way.
 
 Numerics kept from JAX, because a one-ulp change before a ``round`` flips an
 int8 code: every division is an IEEE division, by a tensor on the same
@@ -33,10 +34,14 @@ give the same codes.
 ``deconv_i8`` launches K3 on CUDA tensors (or raises: there is no float
 fallback) and runs ``reference_deconv_i8``, the plain version, on CPU
 tensors: ``F.conv_transpose2d`` in float64, exact since every sum stays far
-below 2^53.
+below 2^53. ``k3_plan`` is K3's tile plan for a shape, computed here and
+passed to the kernel as ints, so that the CPU tests can check it.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -45,8 +50,8 @@ import torch.nn.functional as F
 from . import _build
 
 __all__ = ["TRUNK_GEOMETRY", "calibrate_act_scales", "deconv_i8",
-           "int8_trunk_apply", "pack_kernel", "quantize_trunk",
-           "reference_deconv_i8"]
+           "int8_trunk_apply", "k3_plan", "pack_kernel", "quantize_trunk",
+           "reference_deconv_i8", "unpack_kernel"]
 
 # (conv name, BatchNorm name or None, stride, torch padding) per layer, as
 # in JAX (ganode_tpu/ops/quant.py:43); every conv has k = 4 but Conv_0 (k = 1).
@@ -110,23 +115,30 @@ def _quantize_kernel(w: torch.Tensor):
 
 
 def _ci4(c: int) -> int:
-    return -(-c // 4) * 4
+    return -(-c // 32) * 32
 
 
 def pack_kernel(kernel_q: torch.Tensor) -> torch.Tensor:
     """``kernel_q`` ``(Ci, Co, k, k)`` int8 -> K3's ``(k, k, Co, Ci4)``, the
-    input channels zero-padded to a multiple of 4."""
+    input channels zero-padded to a multiple of 32."""
     ci = kernel_q.shape[0]
     w = kernel_q.permute(2, 3, 1, 0)
     return F.pad(w, (0, _ci4(ci) - ci)).contiguous()
+
+
+def unpack_kernel(layer: dict) -> torch.Tensor:
+    """A layer's int8 kernel in the ``ConvTranspose2d`` layout ``(Ci, Co, k,
+    k)``, a view of its ``packed`` copy without the channel padding."""
+    return layer["packed"][..., :layer["ci"]].permute(3, 2, 0, 1)
 
 
 def quantize_trunk(trunk_name: str, trunk) -> Dict[str, list]:
     """Fold a trunk's float32 weights (the module, in eval mode, or its
     ``state_dict``) into the int8 serving state, on their device.
 
-    Per layer: the int8 kernel, one per-channel multiply (weight scale x
-    folded BatchNorm scale) and a bias; the last layer's bias is zero."""
+    Per layer: the int8 kernel in K3's layout, one per-channel multiply
+    (weight scale x folded BatchNorm scale) and a bias; the last layer's
+    bias is zero."""
     if trunk_name not in TRUNK_GEOMETRY:
         raise ValueError(
             f"no int8 geometry for trunk {trunk_name!r} "
@@ -141,8 +153,8 @@ def quantize_trunk(trunk_name: str, trunk) -> Dict[str, list]:
             scale = ks * bn_scale
         else:
             scale, bias = ks, torch.zeros_like(ks)
-        layers.append({"kernel_q": kq, "scale": scale, "bias": bias,
-                       "packed": pack_kernel(kq)})
+        layers.append({"packed": pack_kernel(kq), "ci": kq.shape[0],
+                       "scale": scale, "bias": bias})
     return {"layers": layers}
 
 
@@ -223,6 +235,145 @@ def _check_deconv(xq, packed, stride, pad, epilogue):
     return ho, wo
 
 
+# K3's tile plan. Tensor-core route: 128 output rows per tile (two warpgroups
+# of 64), N tiles of 64 or 128 columns, K in chunks of BK channels (128 where
+# it divides Ci4, else 32), each chunk's rows BK bytes, swizzled at that
+# width. Bytes route: the last layers, at the two geometries and channel
+# counts that kernel is compiled for, its whole kernel in at most 48 KB of
+# shared memory; any other shape takes the tensor cores.
+TC_ROWS = 128
+TC_BN = (64, 128)
+TC_BK = (128, 32)
+BYTES_KERNELS = ((4, 2, 1, 3), (1, 1, 0, 1))     # (k, s, p, Co) compiled
+BYTES_MAX_SMEM = 48 * 1024
+# the fields of the plan as the C entry point reads them (csrc/int8_deconv.cu
+# enum PlanField, same order); the TMA maps are encoded from the boxes,
+# strides and swizzle given here
+PLAN_FIELDS = ("route", "B", "Hi", "Wi", "Ci4", "N", "Ho", "Wo", "K", "s",
+               "p", "Cs", "BN", "BK", "boxW", "boxH", "boxB", "tilesW",
+               "tilesH", "tilesN", "gridX", "gridZ", "mapRows", "mapTaps",
+               "swizzle", "xStrideW", "xStrideH", "xStrideB", "wStrideRow",
+               "wStrideTap")
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def class_taps(k: int, s: int, p: int) -> tuple:
+    """The transposed conv's parity classes ``(ry, rx, taps)``: the outputs
+    ``(qy s + ry, qx s + rx)`` read, for each tap ``(ky, kx, dy, dx)``, the
+    input pixel ``(qy + dy, qx + dx)``; ``ky = (ry + p) % s + j s`` at
+    ``dy = (ry + p) // s - j`` (the kernel walks the same formula)."""
+    def axis(r):
+        k0 = (r + p) % s
+        return [(k0 + j * s, (r + p) // s - j) for j in range(len(range(k0, k, s)))]
+    return tuple((ry, rx, tuple((ky, kx, dy, dx) for ky, dy in axis(ry)
+                                for kx, dx in axis(rx)))
+                 for ry in range(s) for rx in range(s))
+
+
+@dataclass(frozen=True)
+class K3Plan:
+    """How K3 runs one shape. ``route`` is ``"tensor_core"`` or ``"bytes"``;
+    ``ci4`` the channels the kernel reads (the operands are zero-padded to
+    it). On the tensor-core route ``gemm`` says a 1x1 input with p = 0 runs
+    as one GEMM (one class, one tap, ``n = k^2 Co`` columns); ``k, s, p``,
+    ``ho, wo`` are the geometry the kernel sees (1, 1, 0 and 1 x 1 in that
+    case); ``classes`` its parity classes and taps; ``box`` the input's TMA
+    box ``(BK, boxW, boxH, boxB)`` over ``(C, W, H, B)`` (the weights' box is
+    ``(BK, BN, 1)`` over ``(Ci4, map_rows, map_taps)``), ``swizzle`` both
+    maps' swizzle span in bytes; ``x_strides`` / ``w_strides`` their byte
+    strides; ``tiles`` ``(tilesW, tilesH, tilesB, tilesN)``, ``grid``
+    ``(tiles per class, classes)`` (the kernel is persistent: it launches at
+    most as many blocks as the card holds at once, each walking tiles). The
+    bytes route has its geometry and ``classes`` only: its window and shared
+    memory are compiled for ``(k, s, p, Co)``. ``args`` is what the C entry
+    point reads."""
+    route: str
+    b: int
+    hi: int
+    wi: int
+    ci4: int
+    co: int
+    k: int
+    s: int
+    p: int
+    ho: int
+    wo: int
+    n: int
+    gemm: bool = False
+    bn: int = 0
+    bk: int = 0
+    swizzle: int = 0
+    classes: tuple = ()
+    box: tuple = ()
+    x_strides: tuple = ()
+    w_strides: tuple = ()
+    map_rows: int = 0
+    map_taps: int = 0
+    tiles: tuple = ()
+    grid: tuple = ()
+
+    @property
+    def args(self) -> tuple:
+        """The ints the C entry point reads, in ``PLAN_FIELDS`` order."""
+        tc = self.route == "tensor_core"
+        return (0 if tc else 1, self.b, self.hi, self.wi, self.ci4, self.n,
+                self.ho, self.wo, self.k, self.s, self.p, self.co, self.bn,
+                self.bk, *(self.box[1:] if tc else (0, 0, 0)),
+                *(self.tiles[:2] + self.tiles[3:] if tc else (0, 0, 0)),
+                *(self.grid if tc else (0, 0)), self.map_rows,
+                self.map_taps, self.swizzle,
+                *(self.x_strides + self.w_strides if tc else (0,) * 5))
+
+
+@functools.lru_cache(maxsize=256)
+def k3_plan(b: int, hi: int, wi: int, ci4: int, co: int, k: int, s: int,
+            p: int) -> K3Plan:
+    """K3's plan for ``x (b, hi, wi, ci4)`` and ``packed (k, k, co, ci4)``
+    at stride ``s``, padding ``p`` (shapes ``_check_deconv`` accepts)."""
+    ci4 = _ci4(ci4)
+    ho, wo = (hi - 1) * s - 2 * p + k, (wi - 1) * s - 2 * p + k
+    if (k, s, p, co) in BYTES_KERNELS and k * k * co * ci4 <= BYTES_MAX_SMEM:
+        return K3Plan("bytes", b, hi, wi, ci4, co, k, s, p, ho, wo, co,
+                      classes=class_taps(k, s, p))
+    gemm = hi == wi == 1 and p == 0
+    n, kk, ss, pp, hk, wk = ((k * k * co, 1, 1, 0, 1, 1) if gemm
+                             else (co, k, s, p, ho, wo))
+    bn = TC_BN[0] if n <= TC_BN[0] else TC_BN[1]
+    bk = next(c for c in TC_BK if ci4 % c == 0)
+    hq, wq = -(-hk // ss), -(-wk // ss)    # class (0, 0)'s, the largest
+    box_w = min(_pow2_at_least(wq), TC_ROWS)
+    box_h = min(_pow2_at_least(hq), TC_ROWS // box_w)
+    box_b = TC_ROWS // (box_w * box_h)
+    tiles = (-(-wq // box_w), -(-hq // box_h), -(-b // box_b), -(-n // bn))
+    map_rows, map_taps = (n, 1) if gemm else (co, k * k)
+    return K3Plan(
+        "tensor_core", b, hi, wi, ci4, co, kk, ss, pp, hk, wk, n, gemm=gemm,
+        bn=bn, bk=bk, swizzle=bk, classes=class_taps(kk, ss, pp),
+        box=(bk, box_w, box_h, box_b),
+        x_strides=(ci4, wi * ci4, hi * wi * ci4),
+        w_strides=(ci4, map_rows * ci4), map_rows=map_rows,
+        map_taps=map_taps, tiles=tiles,
+        grid=(tiles[0] * tiles[1] * tiles[2] * tiles[3], ss * ss))
+
+
+@functools.lru_cache(maxsize=256)
+def _c_plan(*shape):
+    plan = k3_plan(*shape)
+    return plan, (ctypes.c_int * len(PLAN_FIELDS))(*plan.args)
+
+
+def _operand(t: torch.Tensor, ci4: int) -> torch.Tensor:
+    """``t`` with its last dimension zero-padded to ``ci4``, contiguous and
+    16-byte aligned, as TMA and the 16-byte loads read it."""
+    if t.shape[-1] != ci4:
+        t = F.pad(t, (0, ci4 - t.shape[-1]))
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch(xq, packed, stride, pad, ho, wo, epilogue, relu):
     """Launch K3 on validated CUDA inputs."""
     global launches
@@ -230,7 +381,8 @@ def _launch(xq, packed, stride, pad, ho, wo, epilogue, relu):
     lib = _build.load_library()
     b, hi, wi, ci4 = xq.shape
     k, _, co, _ = packed.shape
-    xq, packed = xq.contiguous(), packed.contiguous()
+    plan, args = _c_plan(b, hi, wi, ci4, co, k, stride, pad)
+    xq, packed = _operand(xq, plan.ci4), _operand(packed, plan.ci4)
     out = torch.empty((b, ho, wo, co), device=xq.device,
                       dtype=torch.float32 if epilogue else torch.int32)
     if max(xq.numel(), out.numel(), packed.numel()) >= 2 ** 31:
@@ -239,8 +391,7 @@ def _launch(xq, packed, stride, pad, ho, wo, epilogue, relu):
                                   epilogue["bias"])] if epilogue else []
     ptrs = [t.data_ptr() for t in e] or [None] * 3
     err = lib.ganode_deconv_i8(xq.data_ptr(), packed.data_ptr(), out.data_ptr(),
-                               int(bool(epilogue)), *ptrs, int(relu), b, hi,
-                               wi, ci4, co, k, stride, pad,
+                               int(bool(epilogue)), *ptrs, int(relu), args,
                                _build.raw_stream(xq.device))
     _build.check(err, "deconv_i8")
     launches += 1

@@ -24,9 +24,10 @@ value. The GResBlock trunks (plain convolutions, as in JAX) are held, float32 on
 the card against float64 on the CPU at 1e-4 of each tensor's largest value,
 their gradients in float64 on both at 1e-8 of the largest gradient.
 K3, the int8 transposed conv, must equal its plain version (float64,
-rounded) bit for bit at every geometry of the int8 trunks, ±127 inputs
-included, and the int8 trunk on the card the CPU's plain int8 path: the
-same int8 codes at every layer, the frames within 1e-6 (the two tanh).
+rounded) bit for bit at every geometry of the int8 trunks and at shapes
+that cross its tiles' edges, ±127 inputs included, and the int8 trunk on
+the card the CPU's plain int8 path: the same int8 codes at every layer,
+the frames within 1e-6 (the two tanh).
 The SDE, CDE, ODE-RNN and MoE-ODE samplers (no kernel, as in JAX) are held,
 float32 on the card against float64 on the CPU, at 1e-4. The spectral-norm
 critics and the gradient penalty (no kernel of their own:
@@ -136,9 +137,16 @@ def test_each_variant_at_the_serving_shape(cuda, variant):
     torch.testing.assert_close(got_gru, reference_gru_motion(*gru), rtol=0, atol=1e-5)
 
 
+# the last seven cross tile edges: M not a multiple of 64, Co not a multiple
+# of the N tile, two W tiles, Ci4 not a multiple of 16 (padded by the
+# wrapper), classes with one, two or no taps, a 1x1 input with p > 0; every
+# s = 2, p = 1 shape reads boxes at negative coordinates on its border
 @pytest.mark.parametrize("b,hw,ci4,co,k,s,p", [
     (70, 1, 68, 130, 4, 1, 0), (9, 4, 64, 64, 4, 2, 1),
-    (5, 7, 32, 3, 4, 2, 1), (3, 6, 12, 1, 1, 1, 0), (2, 2, 2048, 70, 4, 2, 1)])
+    (5, 7, 32, 3, 4, 2, 1), (3, 6, 12, 1, 1, 1, 0), (2, 2, 2048, 70, 4, 2, 1),
+    (3, 5, 64, 96, 4, 2, 1), (2, 4, 64, 200, 4, 2, 1),
+    (1, 130, 32, 16, 4, 2, 1), (4, 3, 20, 40, 4, 2, 1), (2, 5, 32, 5, 3, 2, 1),
+    (2, 3, 32, 16, 1, 2, 0), (3, 1, 64, 24, 4, 1, 1)])
 @pytest.mark.parametrize("extreme", [False, True])
 def test_int8_deconv_kernel_matches_plain(cuda, b, hw, ci4, co, k, s, p,
                                           extreme):

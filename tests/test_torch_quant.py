@@ -9,8 +9,10 @@ BatchNorm statistics from one train-mode pass, as ``tests/test_ops.py``'s
 * The plain int8 deconv equals JAX's ``_deconv_i8`` exactly at every
   geometry of ``TRUNK_GEOMETRY`` (k4 s1 p0 from 1x1, k4 s2 p1, the 1x1
   ``Conv_0``), ±127 inputs whose sums pass 2^24 included.
-* ``quantize_trunk`` equals JAX's after the bridge's int8 rule:
-  ``kernel_q`` exactly, and ``scale`` and ``bias`` too (held at rtol 1e-6
+* ``quantize_trunk`` equals JAX's after the bridge's int8 rule: the
+  kernel derived from K3's packed copy equals JAX's ``kernel_q`` exactly,
+  JAX -> port -> JAX is exact, and the state holds one int8 kernel per
+  layer (K3's layout, its padding zero); ``scale`` and ``bias`` too (held at rtol 1e-6
   and found bit-equal: the BatchNorm fold takes a correctly rounded float32
   square root, as XLA does); ``calibrate_act_scales`` at rtol 1e-5 (its
   float convolutions sum in another order in XLA and oneDNN; measured
@@ -135,8 +137,9 @@ def test_quantize_trunk_equals_jax(pair):
     want = bridge.int8_state_to_torch(pair["jqp"])
     assert len(qs["layers"]) == len(want["layers"])
     for got, ref in zip(qs["layers"], want["layers"]):
-        assert got["kernel_q"].dtype == torch.int8
-        assert torch.equal(got["kernel_q"], ref["kernel_q"])
+        kq = quant.unpack_kernel(got)
+        assert kq.dtype == torch.int8
+        assert torch.equal(kq, quant.unpack_kernel(ref))
         assert torch.equal(got["packed"], ref["packed"])
         np.testing.assert_allclose(got["scale"], ref["scale"], rtol=1e-6)
         np.testing.assert_allclose(got["bias"], ref["bias"], rtol=1e-6,
@@ -147,6 +150,28 @@ def test_quantize_trunk_equals_jax(pair):
     back = bridge.int8_state_to_jax(qs)
     for got, ref in zip(back["layers"], pair["jqp"]["layers"]):
         np.testing.assert_array_equal(got["kernel_q"], np.asarray(ref["kernel_q"]))
+
+
+def test_the_int8_state_holds_each_kernel_once_and_round_trips(pair):
+    qs = quant.quantize_trunk(pair["name"], pair["port"])
+    jqp = pair["jqp"]["layers"]
+    for layer, ref in zip(qs["layers"], jqp):
+        k, _, ci, co = np.asarray(ref["kernel_q"]).shape
+        assert sorted(layer) == ["bias", "ci", "packed", "scale"]
+        # one int8 tensor per layer: K3's packing, padded to 32 channels
+        int8 = [v for v in layer.values() if isinstance(v, torch.Tensor)
+                and v.dtype == torch.int8]
+        assert len(int8) == 1 and layer["ci"] == ci
+        assert layer["packed"].shape == (k, k, co, -(-ci // 32) * 32)
+        assert not layer["packed"][..., ci:].any()
+    for name, state in (("port", qs),
+                        ("bridge", bridge.int8_state_to_torch(pair["jqp"]))):
+        back = bridge.int8_state_to_jax(state)
+        for got, ref in zip(back["layers"], jqp):
+            for key in ("kernel_q", "scale", "bias"):
+                assert got[key].dtype == np.asarray(ref[key]).dtype, name
+                np.testing.assert_array_equal(got[key], np.asarray(ref[key]),
+                                              err_msg=f"{name} {key}")
 
 
 def test_calibrate_act_scales_equals_jax(pair):
