@@ -49,22 +49,28 @@ printing one line before the next starts:
     step, samples and checkpoints every 2), and checks what it wrote: four
     finite ``metrics.jsonl`` lines, TensorBoard events (read back by the
     port's own reader), the GIFs of steps 0 and 2, checkpoints 0, 2 and 4;
-13. drives ``run_training`` on ``ucf_ode`` at full width in this process:
-    K1's warp counter +6 per step exactly, ms/step from the runner's own log
+13. drives ``run_training`` on ``ucf_ode`` at full width in this process
+    (its batches through ``data/loader.py::prefetch``, drawn ahead in a
+    worker thread and copied from pinned memory on a side stream): K1's
+    warp counter +6 per step exactly, ms/step from the runner's own log
     beside phase 8's bare ``train_step``, the host data path (gather and
-    copy to the card) alone, and a checkpoint's size and save and restore
-    times (the restore bit for bit);
+    copy to the card) alone, the time the loop waited for each step's
+    batches, and a checkpoint's size and save and restore times (the
+    restore bit for bit);
 14. in a child process under deterministic algorithms (cuDNN deterministic,
     ``torch.use_deterministic_algorithms``, ``CUBLAS_WORKSPACE_CONFIG`` set
     before cuBLAS starts): 4 ``ucf_ode`` steps straight, then 2 steps, a
     STOP file, and a resume to 4; every parameter, BatchNorm statistic and
-    Adam moment must be equal bit for bit;
+    Adam moment must be equal bit for bit; on the python samplers, then
+    through the native loader (``data_loader="native"``) over a pack of 32
+    random uint8 videos of 40 frames written here, whose streams the resume
+    opens at batch ``2 * d_iters``;
 15. trains ``mnist_gru`` at full width through ``make_device_data_step``, its
     synthetic rotated-MNIST set resident on the card: K2 +6 per step;
 16. trains ``ucf_wgan_gp_128`` at full width (dcgan128, ngf = ndf = 64,
     B=32, T=32, 128x128x3, spectral-norm critics, GP 10, d_iters 5, dopri5
     motion) on uniform random batches on the card, cuDNN TF32 on: 1 warm-up
-    step, then 3 timed steps; ms/step, clips/s, ms per phase, peak memory,
+    step, then 2 timed steps; ms/step, clips/s, ms per phase, peak memory,
     the step's FLOPs counted from the shapes (``step_flops``), per dopri5
     solve its evaluations, accepted and rejected steps, host syncs and ms;
     requires finite losses, K1 and K2 +0 (dopri5 runs no kernel, as in
@@ -120,7 +126,7 @@ printing one line before the next starts:
     the device within [0, p_max], and K1's launches per step equal to the
     unaugmented step's (6), K2 +0;
 28. trains ``ucf_wgan_gp_128`` at full width with ``diffaug=color,
-    translation,cutout`` (the JAX package's north-star run): 1 warm-up + 3
+    translation,cutout`` (the JAX package's north-star run): 1 warm-up + 2
     timed steps, beside phase 16's unaugmented step; ms/step, ms per phase,
     peak memory; K1 and K2 +0;
 29. takes one reduced-width ADA + R1 ``mnist_ode`` step (ngf = ndf = 8,
@@ -233,7 +239,18 @@ printing one line before the next starts:
 44. traces one int8 ``sample_videos(64)`` of ``ucf_ode`` with
     ``utils/profiling.trace`` under ``annotate``: the trace names the
     annotation, K3 and K1; the device's idle share between the call's
-    first and last kernel.
+    first and last kernel;
+45. (run right after phase 13) packs 32 uniform random uint8 videos of 40
+    frames at 64x64x3 (~16 MB) into a temporary directory with the port's
+    ``pack_arrays``, holds the first step's batches as ``prefetch`` puts
+    them on the card against ``runtime.NativeClipLoader.next()``'s host
+    batches of the same streams, bit for bit, and drives ``run_training``
+    on ``ucf_ode`` through ``data_loader="native"`` (the C++ clip loader,
+    built with ``g++``): K1 +6 per step exactly, finite losses, ms/step
+    beside phase 13's python path and phase 8's bare step, the time the
+    loop waited for each step's batches;
+46. (run right after phase 19) the same for ``ucf_wgan_gp_128`` over 32
+    videos of 48 frames at 128x128x3 (~75 MB), 2 steps, K1 +0.
 
 Float32, except phase 20; each of phases 21-43 prints its seconds. Matrix
 products run in full float32 (``torch.backends.cuda.matmul.allow_tf32 =
@@ -291,7 +308,7 @@ RUNNER_STEPS = 6  # run_training steps; ms/step from the log of the first and la
 DEVICE_DATA_STEPS = 3
 # ucf_wgan_gp_128 (phases 16-19): timed full-width steps after one warm-up,
 # run_training steps, and the dopri5 solves timed alone
-WGAN_STEPS = 3
+WGAN_STEPS = 2
 WGAN_RUNNER_STEPS = 2
 # the SDE, CDE, ODE-RNN and MoE-ODE configs (phase 21): timed full-width
 # steps after two warm-up steps
@@ -304,6 +321,7 @@ DIFFAUG = "color,translation,cutout"
 ADA_RUN = {"diffaug": DIFFAUG, "r1_weight": 0.1, "ada_target": 0.6,
            "ada_p_max": 1.0}
 DIFFAUG_STEPS = 3
+WGAN_DIFFAUG_STEPS = 2  # ucf_wgan_gp_128 + diffaug (phase 28)
 TOL_COLOR = 1e-6
 # Videos the generate CLI served against the same sampling in this process:
 # the same ops on the same card, cuDNN choosing its algorithms per process.
@@ -322,9 +340,14 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CUBLAS_DETERMINISTIC = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str):
+    """Arm the watchdog and print the phase's line, with the seconds since
+    the script started."""
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
-    print(f"== {name}", flush=True)
+    print(f"== [{time.perf_counter() - _T0:.1f} s] {name}", flush=True)
 
 
 def say(*parts):
@@ -854,10 +877,104 @@ def same_state(a, b):
     return n, bad
 
 
-def runner_phase(dev, card, name, steps, bare_ms, k1_per_step) -> dict:
+# Native-loader phases (45, 46, and phase 14's child): synthetic uint8
+# videos packed with the port's pack_arrays, (videos, frames each) per
+# config; ~16 MB at 64x64x3 and ~75 MB at 128x128x3
+NATIVE_PACKS = {"ucf_ode": (32, 40), "ucf_wgan_gp_128": (32, 48)}
+
+
+def write_native_pack(cfg, directory, seed=0) -> str:
+    """A pack of uniform random uint8 videos at ``cfg``'s frame geometry."""
+    import numpy as np
+
+    from ganode_tpu_torch.data import pack_arrays
+
+    n, frames = NATIVE_PACKS[cfg.name]
+    size = FRAME_SIZE[cfg.trunk]
+    rng = np.random.default_rng(seed)
+    videos = [rng.integers(0, 256, (frames, size, size, cfg.n_channels),
+                           dtype=np.uint8) for _ in range(n)]
+    return pack_arrays(directory, videos, rng.integers(0, 101, n).tolist(),
+                       image_size=size, n_frame=cfg.video_length)
+
+
+def timing_prefetch(runner, waits):
+    """Put a wrapper around ``runner.prefetch`` that appends to ``waits``
+    the seconds the loop waited for each step's batches -> a function that
+    takes it off again."""
+    orig = runner.prefetch
+
+    def timed(*a, **kw):
+        it = orig(*a, **kw)
+
+        def gen():
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        item = next(it)
+                    except StopIteration:
+                        return
+                    waits.append(time.perf_counter() - t0)
+                    yield item
+            finally:
+                it.close()
+
+        return gen()
+
+    runner.prefetch = timed
+    return lambda: setattr(runner, "prefetch", orig)
+
+
+def native_first_batch(dev, cfg) -> dict:
+    """The first step's batches as prefetch puts them on the card, against
+    NativeClipLoader.next()'s host batches of the same streams: bit for
+    bit."""
+    import torch
+
+    from ganode_tpu_torch.data import prefetch
+    from ganode_tpu_torch.runtime import NativeClipLoader
+    from ganode_tpu_torch.train import runner
+
+    samplers = runner.build_data(cfg)
+    it = prefetch(runner.step_batches(*samplers, cfg, 0, 1), device=dev)
+    try:
+        images, videos = next(it)
+        torch.cuda.synchronize()
+    finally:
+        it.close()
+        for s in samplers:
+            s.close()
+    threads = cfg.data_loader_threads
+    streams = ((images, 1, max(1, threads // 2), cfg.seed + 1),
+               (videos, cfg.video_length, threads, cfg.seed))
+    bad, n = [], 0
+    for got, frames, n_threads, seed in streams:
+        loader = NativeClipLoader(cfg.data_path, cfg.batch_size,
+                                  n_frame=frames, n_threads=n_threads,
+                                  seed=seed)
+        try:
+            for i in range(cfg.d_iters):
+                want = torch.from_numpy(loader.next()[0])
+                if frames == 1:
+                    want = want[:, 0]
+                n += 1
+                if not (got.device.type == dev.type
+                        and torch.equal(got[i].cpu(), want)):
+                    bad.append(f"seed {seed} batch {i}")
+        finally:
+            loader.close()
+    return {"batches": n, "mismatched": bad,
+            "bytes": images.nbytes + videos.nbytes}
+
+
+def runner_phase(dev, card, name, steps, bare_ms, k1_per_step,
+                 python_path=None) -> dict:
     """Phases 13 and 19: run_training in process at full width of config
-    ``name`` for ``steps`` steps, K1 launching ``k1_per_step`` times per
-    step exactly."""
+    ``name`` for ``steps`` steps on the python samplers, K1 launching
+    ``k1_per_step`` times per step exactly; with ``python_path`` (that
+    phase's record), phases 45 and 46: the same through the native loader
+    over a pack written here, its first batch held against the loader's."""
     import torch
 
     from ganode_tpu_torch.ops import fused_gru, fused_rk4
@@ -865,18 +982,49 @@ def runner_phase(dev, card, name, steps, bare_ms, k1_per_step) -> dict:
     from ganode_tpu_torch.utils.checkpoint import CheckpointManager
     from ganode_tpu_torch.utils.config import get_config
 
+    native = python_path is not None
+    t_phase = time.perf_counter()
     phase(f"run_training on {name} at full width: {steps} steps, cuDNN TF32 "
-          "on")
+          "on, " + ("through the native loader (data_loader=native, "
+                    f"{NATIVE_PACKS[name][0]} packed videos of "
+                    f"{NATIVE_PACKS[name][1]} frames)" if native
+                    else "the python samplers"))
     torch.backends.cudnn.allow_tf32 = True
     cfg = get_config(name, log_every=steps - 1, sample_every=0,
                      checkpoint_every=0)
     tmp = tempfile.mkdtemp(prefix="ganode_runner_")
+    waits = []
     try:
+        out = {}
+        if native:
+            import dataclasses
+
+            t0 = time.perf_counter()
+            cfg = dataclasses.replace(cfg, data_loader="native",
+                                      data_path=write_native_pack(
+                                          cfg, os.path.join(tmp, "pack")))
+            pack_s = time.perf_counter() - t0
+            first = native_first_batch(dev, cfg)
+            say(f"native first batch: {first['batches']} batches of the "
+                f"image and clip streams ({first['bytes'] / 1e6:.1f} MB) as "
+                f"prefetch put them on the card, {len(first['mismatched'])} "
+                f"differ bit for bit from NativeClipLoader.next(); pack "
+                f"written in {pack_s:.1f} s; {card}")
+            require(first["batches"] == 2 * cfg.d_iters
+                    and not first["mismatched"],
+                    f"the card's first native batch differs from the "
+                    f"loader's: {first['mismatched']}")
+            out["first_batch"] = first
         wd = os.path.join(tmp, "run")
-        reset_counts()
-        state, metrics = runner.run_training(cfg, wd, steps=steps,
-                                             synthetic=True, device=dev)
-        torch.cuda.synchronize()
+        untime = timing_prefetch(runner, waits)
+        try:
+            reset_counts()
+            state, metrics = runner.run_training(cfg, wd, steps=steps,
+                                                 synthetic=not native,
+                                                 device=dev)
+            torch.cuda.synchronize()
+        finally:
+            untime()
         by_variant = dict(fused_rk4.launches_by_variant)
         launches = fused_rk4.launches
         say(f"run_training {name}: K1 launches {by_variant} in {steps} steps, "
@@ -886,8 +1034,26 @@ def runner_phase(dev, card, name, steps, bare_ms, k1_per_step) -> dict:
                 f"K1 did not launch exactly {k1_per_step} times per runner "
                 f"step: {by_variant}")
         require(all(map(math.isfinite, metrics.values())), f"losses {metrics}")
+        require(len(waits) == steps, f"{len(waits)} batches for {steps} steps")
         first, last = jsonl(os.path.join(wd, "metrics.jsonl"))
         ms = (last["time"] - first["time"]) * 1e3 / (steps - 1)
+        wait_ms = [w * 1e3 for w in waits]
+        later = wait_ms[1:]
+        out.update({"ms_per_step": ms, "bare_train_step_ms": bare_ms,
+                    "batch_wait_ms": wait_ms, "k1_launches": launches,
+                    "losses": metrics})
+        if native:
+            say(f"run_training {name} (native loader): {ms:.3f} ms/step over "
+                f"steps 1-{steps - 1} (the runner's log), against "
+                f"{python_path['ms_per_step']:.3f} through the python samplers "
+                f"(phase {13 if name == 'ucf_ode' else 19}, "
+                f"{python_path['batch_bytes'] / 1e6:.1f} MB per step) and "
+                f"{bare_ms:.3f} for the bare train_step (TF32 on); the loop "
+                f"waited {wait_ms[0]:.3f} ms for step 0's batches and "
+                f"{max(later):.3f} ms at most (mean "
+                f"{sum(later) / len(later):.3f}) for each later step's; "
+                f"{time.perf_counter() - t_phase:.1f} s; {card}")
+            return out
 
         img_s, vid_s = runner.build_data(cfg, synthetic=True)
         gather, copy_ = [], []
@@ -907,10 +1073,14 @@ def runner_phase(dev, card, name, steps, bare_ms, k1_per_step) -> dict:
         host_ms = min(gather) + min(copy_)
         say(f"run_training {name}: {ms:.3f} ms/step over steps 1-"
             f"{steps - 1} (the runner's log), against {bare_ms:.3f} for "
-            f"the bare train_step (TF32 on); the host data path alone: "
-            f"gather {min(gather):.3f} ms + copy to the card {min(copy_):.3f} "
-            f"ms of {batch_bytes / 1e6:.1f} MB per step (least of 3) = "
-            f"{100 * host_ms / ms:.1f} % of a runner step; {card}")
+            f"the bare train_step (TF32 on); the host data path alone "
+            f"(prefetch runs it ahead, in its own thread): gather "
+            f"{min(gather):.3f} ms + pageable copy to the card "
+            f"{min(copy_):.3f} ms of {batch_bytes / 1e6:.1f} MB per step "
+            f"(least of 3) = {100 * host_ms / ms:.1f} % of a runner step; "
+            f"the loop waited {wait_ms[0]:.3f} ms for step 0's batches and "
+            f"{max(later):.3f} ms at most (mean {sum(later) / len(later):.3f}) "
+            f"for each later step's; {card}")
 
         mgr = CheckpointManager(os.path.join(tmp, "ckpt"))
         torch.cuda.synchronize()
@@ -930,12 +1100,11 @@ def runner_phase(dev, card, name, steps, bare_ms, k1_per_step) -> dict:
             f"MiB, save {save_ms:.1f} ms, restore {restore_ms:.1f} ms (to the "
             f"card), {len(bad)} tensors differ after the restore; {card}")
         require(not bad, f"restore differs in {bad[:10]}")
-        return {"ms_per_step": ms, "bare_train_step_ms": bare_ms,
-                "host_gather_ms": min(gather), "host_copy_ms": min(copy_),
-                "batch_bytes": batch_bytes, "host_share": host_ms / ms,
-                "k1_launches": launches, "losses": metrics,
-                "checkpoint_bytes": size, "checkpoint_save_ms": save_ms,
-                "checkpoint_restore_ms": restore_ms}
+        out.update({"host_gather_ms": min(gather), "host_copy_ms": min(copy_),
+                    "batch_bytes": batch_bytes, "host_share": host_ms / ms,
+                    "checkpoint_bytes": size, "checkpoint_save_ms": save_ms,
+                    "checkpoint_restore_ms": restore_ms})
+        return out
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -944,7 +1113,8 @@ def resume_phase(card) -> dict:
     """Phase 14: the child below, in a fresh process so that cuBLAS starts
     with a deterministic workspace."""
     phase("resume on the card, deterministic: 4 steps straight against 2 "
-          "steps + STOP + resume to 4 (ucf_ode, full width)")
+          "steps + STOP + resume to 4 (ucf_ode, full width), on the python "
+          "samplers and through the native loader")
     tmp = tempfile.mkdtemp(prefix="ganode_resume_")
     try:
         out = run_child([sys.executable, os.path.abspath(__file__),
@@ -953,19 +1123,59 @@ def resume_phase(card) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     rec = json.loads(out.strip().splitlines()[-1])
-    say(f"resume: {rec['tensors']} tensors compared, {len(rec['mismatched'])} "
-        f"differ; straight run {rec['straight_s']:.1f} s, interrupted "
-        f"{rec['interrupted_s']:.1f} s, resumed {rec['resumed_s']:.1f} s "
-        f"(deterministic); {card}")
-    require(rec["tensors"] > 0 and not rec["mismatched"],
-            f"resume differs in {rec['mismatched'][:10]}")
+    for loader, r in rec.items():
+        say(f"resume ({loader}): {r['tensors']} tensors compared, "
+            f"{len(r['mismatched'])} differ; straight run "
+            f"{r['straight_s']:.1f} s, interrupted {r['interrupted_s']:.1f} s, "
+            f"resumed {r['resumed_s']:.1f} s (deterministic); {card}")
+        require(r["tensors"] > 0 and not r["mismatched"],
+                f"the {loader} resume differs in {r['mismatched'][:10]}")
     return rec
 
 
+def interrupted_resume(runner, cfg, workdir, synthetic) -> dict:
+    """``cfg`` at full width, 4 steps straight, then 2 steps with a STOP
+    file written during step 1 (as an operator's ``touch`` would), then a
+    resume to 4 -> the comparison with the straight run."""
+    t0 = time.perf_counter()
+    straight, _ = runner.run_training(cfg, os.path.join(workdir, "straight"),
+                                      steps=4, synthetic=synthetic)
+    t1 = time.perf_counter()
+    wd = os.path.join(workdir, "resumed")
+    step_generator = runner.step_generator
+
+    def stop_in_step_1(seed, step, stream, device):
+        # drawn in the loop's thread as each step starts (the batches are
+        # drawn ahead, in prefetch's)
+        if step == 1 and stream == runner.TRAIN:
+            open(os.path.join(wd, "STOP"), "w").close()
+        return step_generator(seed, step, stream, device)
+
+    runner.step_generator = stop_in_step_1
+    try:
+        half, m = runner.run_training(cfg, wd, steps=4, synthetic=synthetic)
+    finally:
+        runner.step_generator = step_generator
+    require(m.get("preempted") == 2.0 and half.step == 2
+            and not os.path.exists(os.path.join(wd, "STOP")),
+            f"the STOP file did not halt the run after step 1: {m}")
+    del half
+    t2 = time.perf_counter()
+    resumed, m = runner.run_training(cfg, wd, steps=4, synthetic=synthetic,
+                                     resume=True)
+    t3 = time.perf_counter()
+    require("preempted" not in m and resumed.step == 4, f"resume: {m}")
+    n, bad = same_state(resumed, straight)
+    return {"tensors": n, "mismatched": bad, "straight_s": t1 - t0,
+            "interrupted_s": t2 - t1, "resumed_s": t3 - t2}
+
+
 def resume_check(workdir) -> int:
-    """Phase 14's child: ucf_ode at full width, 4 steps straight, then 2
-    steps with a STOP file written during step 1 (as an operator's ``touch``
-    would), then a resume to 4; prints the comparison as one JSON line."""
+    """Phase 14's child: ``interrupted_resume`` of ucf_ode on the python
+    samplers, then through the native loader over a pack written here;
+    prints both comparisons as one JSON line."""
+    import dataclasses
+
     import torch
 
     require(torch.cuda.is_available(), "no CUDA card")
@@ -980,38 +1190,13 @@ def resume_check(workdir) -> int:
     torch.backends.cudnn.benchmark = False
     torch.use_deterministic_algorithms(True)
     cfg = get_config("ucf_ode", log_every=1, sample_every=0, checkpoint_every=0)
-    t0 = time.perf_counter()
-    straight, _ = runner.run_training(cfg, os.path.join(workdir, "straight"),
-                                      steps=4, synthetic=True)
-    t1 = time.perf_counter()
-    wd = os.path.join(workdir, "resumed")
-    stack = runner._stack_d_batches
-    calls = [0]
-
-    def stop_in_step_1(sampler, rng, d_iters):
-        calls[0] += 1
-        if calls[0] == 3:  # two fetches per step: the first of step 1
-            open(os.path.join(wd, "STOP"), "w").close()
-        return stack(sampler, rng, d_iters)
-
-    runner._stack_d_batches = stop_in_step_1
-    try:
-        half, m = runner.run_training(cfg, wd, steps=4, synthetic=True)
-    finally:
-        runner._stack_d_batches = stack
-    require(m.get("preempted") == 2.0 and half.step == 2
-            and not os.path.exists(os.path.join(wd, "STOP")),
-            f"the STOP file did not halt the run after step 1: {m}")
-    del half
-    t2 = time.perf_counter()
-    resumed, m = runner.run_training(cfg, wd, steps=4, synthetic=True,
-                                     resume=True)
-    t3 = time.perf_counter()
-    require("preempted" not in m and resumed.step == 4, f"resume: {m}")
-    n, bad = same_state(resumed, straight)
-    print(json.dumps({"tensors": n, "mismatched": bad,
-                      "straight_s": t1 - t0, "interrupted_s": t2 - t1,
-                      "resumed_s": t3 - t2}), flush=True)
+    rec = {"python": interrupted_resume(
+        runner, cfg, os.path.join(workdir, "python"), True)}
+    native = dataclasses.replace(cfg, data_loader="native", data_path=(
+        write_native_pack(cfg, os.path.join(workdir, "pack"))))
+    rec["native"] = interrupted_resume(
+        runner, native, os.path.join(workdir, "native"), False)
+    print(json.dumps(rec), flush=True)
     return 0
 
 
@@ -1764,14 +1949,14 @@ def diffaug_phases(dev, card, events_ms, wgan_ms) -> dict:
 
     t0 = time.perf_counter()
     phase(f"train ucf_wgan_gp_128 at full width with diffaug={DIFFAUG}: 1 "
-          f"warm-up + {DIFFAUG_STEPS} timed steps, cuDNN TF32 on")
+          f"warm-up + {WGAN_DIFFAUG_STEPS} timed steps, cuDNN TF32 on")
     cfg = get_config("ucf_wgan_gp_128", diffaug=DIFFAUG)
     tr = build_trainer(cfg, device=dev)
     state = tr.init_state()
     gt = torch.Generator(dev).manual_seed(0)
     images, videos = random_batches(cfg, dev, 0)
     ms, mem, losses, k1, k2, _ = timed_steps(tr, state, images, videos, gt, 1,
-                                             DIFFAUG_STEPS)
+                                             WGAN_DIFFAUG_STEPS)
     require(k1 == 0 and k2 == 0, f"ucf_wgan_gp_128 + diffaug: K1 {k1} / K2 {k2}")
     require(all(map(math.isfinite, losses.values())), f"losses {losses}")
     phases = phase_ms(tr, state, images, videos, gt, 1)
@@ -1884,7 +2069,7 @@ def leaky_relu_phase(dev, card) -> dict:
     flax_like = mocogan.leaky_relu
     fused = lambda x, negative_slope=0.2: F.leaky_relu(x, negative_slope)
     out = {}
-    for name, warmup, n in (("ucf_ode", 2, 5), ("ucf_wgan_gp_128", 1, 2)):
+    for name, warmup, n in (("ucf_ode", 2, 5), ("ucf_wgan_gp_128", 1, 1)):
         cfg = get_config(name)
         tr = build_trainer(cfg, device=dev)
         state = tr.init_state()
@@ -3635,6 +3820,10 @@ def main() -> int:
     entry["run_training"] = runner_phase(
         dev, card, "ucf_ode", RUNNER_STEPS,
         training["ucf_ode"]["tf32_on"]["ms_per_step"], 6)
+    entry["run_training_native"] = runner_phase(
+        dev, card, "ucf_ode", RUNNER_STEPS,
+        training["ucf_ode"]["tf32_on"]["ms_per_step"], 6,
+        python_path=entry["run_training"])
     entry["resume"] = resume_phase(card)
     entry["device_data_step"] = device_data_phase(dev, card)
     training["entry_point"] = entry
@@ -3642,6 +3831,9 @@ def main() -> int:
     wgan["run_training"] = runner_phase(
         dev, card, "ucf_wgan_gp_128", WGAN_RUNNER_STEPS,
         wgan["ms_per_step"], 0)
+    wgan["run_training_native"] = runner_phase(
+        dev, card, "ucf_wgan_gp_128", WGAN_RUNNER_STEPS,
+        wgan["ms_per_step"], 0, python_path=wgan["run_training"])
     training["ucf_wgan_gp_128"] = wgan
     training["ucf_ode_bf16"] = bf16_phase(
         dev, card, training["ucf_ode"]["tf32_on"]["ms_per_step"], events_ms)
@@ -3664,7 +3856,13 @@ def main() -> int:
              "serve ucf_ode sample_videos(64)": launches_k1,
              "train_step, per step": training["ucf_ode"]["k1_launches_per_step"],
              f"run_training ucf_ode, {RUNNER_STEPS} steps":
-                 entry["run_training"]["k1_launches"]},
+                 entry["run_training"]["k1_launches"],
+             f"run_training ucf_ode through the native loader, "
+             f"{RUNNER_STEPS} steps":
+                 entry["run_training_native"]["k1_launches"],
+             f"run_training ucf_wgan_gp_128 through the native loader, "
+             f"{WGAN_RUNNER_STEPS} steps":
+                 wgan["run_training_native"]["k1_launches"]},
          "max_abs_err": worst("K1 rk4_motion"),
          "ms": k1_ms, "ms_wide": k1_wide_ms, "call_ms": k1_call_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
@@ -3704,7 +3902,7 @@ def main() -> int:
         aug["mnist_ode_ada"]["plain"]["k1_launches_per_step"][0]
     for kernel, key in zip(record["kernels"], ("k1", "k2")):
         kernel["launches_by_path"]["train_step ucf_wgan_gp_128 + diffaug, "
-                                   f"{DIFFAUG_STEPS} steps"] = \
+                                   f"{WGAN_DIFFAUG_STEPS} steps"] = \
             aug["ucf_wgan_gp_128_diffaug"][f"{key}_launches"]
     record["kernels"][1]["launches_by_path"][
         f"train_step mnist_ode + diffaug + ADA + R1, {2 * DIFFAUG_STEPS} "

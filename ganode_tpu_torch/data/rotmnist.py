@@ -1,7 +1,7 @@
 """Rotated-MNIST videos: digits rotated into clips, the loader and the batch
 samplers (twin of ``ganode_tpu/data/rotmnist.py:36-229``; the offline
 preparation, ``build_rotmnist``, ``load_mnist_idx`` and
-``load_sklearn_digits``, waits for ROADMAP M15).
+``load_sklearn_digits``, waits for ROADMAP M15b).
 
 The samplers are ``data/sampling.py``'s in-memory ones (a draw from a
 ``numpy.random.Generator``, then a gather) over the rescaled clips.

@@ -9,7 +9,7 @@ tests hold against JAX.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -18,6 +18,13 @@ class Sampler:
     def sample(self, rng: np.random.Generator) -> Tuple[np.ndarray, np.ndarray]:
         """``gather(*draw(rng))``: one batch and its labels."""
         return self.gather(*self.draw(rng))
+
+    def iterate(self, rng: np.random.Generator
+                ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """``sample(rng)`` forever, every batch drawn from the one ``rng``
+        (the JAX samplers' ``iterate(key)`` folds a counter into the key)."""
+        while True:
+            yield self.sample(rng)
 
 
 class ArrayImages(Sampler):

@@ -1,6 +1,14 @@
-"""Packed UCF101: the pack format, its memory-mapped reader and the clip and
-frame samplers (twin of ``ganode_tpu/data/ucf101.py:133-258``; decoding and
-``pack_ucf101`` wait for ROADMAP M15).
+"""Packed UCF101: the offline pack, its format, its memory-mapped reader and
+the clip and frame samplers (twin of ``ganode_tpu/data/ucf101.py``).
+
+``pack_ucf101`` decodes a split once (``data/video.py``, OpenCV), resizes
+bicubic to (64, 85) and crops x[10:74] (the reference's spatial pipeline,
+scaled for other sizes), and writes the pack; the samplers and the native
+loader (``runtime/``) then serve windows by indexing, with no decoder in
+the training loop. The annotations are read as the reference reads them:
+``classInd.txt`` for the classes (reference dataset/ucf101new.py:35-46) and
+``{train,test}list0{fold}.txt`` for the split (:49-68); videos shorter than
+``n_frame`` are left out at pack time.
 
 A pack directory holds ``frames.u8`` (every frame of every video, uint8
 ``(H, W, C)``, one after another), ``index.npz`` (each video's ``offsets``,
@@ -15,7 +23,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -24,6 +32,111 @@ from .sampling import Sampler
 _FRAMES_FILE = "frames.u8"
 _INDEX_FILE = "index.npz"
 _META_FILE = "meta.json"
+
+
+def parse_class_index(annotation_folder: str
+                      ) -> Tuple[List[str], Dict[str, int]]:
+    """``classInd.txt`` -> (class names in file order, name -> the file's
+    index)."""
+    classes, class_to_idx = [], {}
+    with open(os.path.join(annotation_folder, "classInd.txt")) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) != 2:
+                continue
+            idx, name = int(parts[0]), parts[1].strip()
+            classes.append(name)
+            class_to_idx[name] = idx
+    return classes, class_to_idx
+
+
+def parse_split(annotation_folder: str, train: bool, fold: int) -> List[str]:
+    """The relative paths of ``{train,test}list0{fold}.txt``."""
+    if fold not in (1, 2, 3):
+        raise ValueError(f"fold must be 1, 2 or 3, not {fold}")
+    name = f"{'train' if train else 'test'}list0{fold}.txt"
+    with open(os.path.join(annotation_folder, name)) as f:
+        return [line.split()[0] for line in f if line.strip()]
+
+
+def pack_ucf101(
+    root: str,
+    out_dir: str,
+    *,
+    video_folder: str = "videos",
+    annotation_folder: str = "annotations",
+    train: bool = True,
+    fold: int = 1,
+    n_frame: int = 16,
+    image_size: int = 64,
+    target_fps: Optional[float] = None,
+    max_videos: Optional[int] = None,
+    progress: bool = True,
+) -> str:
+    """Decode and preprocess a whole split of ``root`` into the pack
+    ``out_dir`` -> ``out_dir``.
+
+    Videos of a class missing from ``classInd.txt``, files that are absent
+    and videos with fewer than ``n_frame`` decodable frames are left out.
+    ``target_fps`` resamples each video to that rate first
+    (``video.resample_frame_indices``); each kept video's source fps is
+    recorded in ``meta.json``.
+    """
+    from .video import probe_fps, read_video, resample_frame_indices, resize_crop
+
+    os.makedirs(out_dir, exist_ok=True)
+    ann = os.path.join(root, annotation_folder)
+    vid_root = os.path.join(root, video_folder)
+    classes, class_to_idx = parse_class_index(ann)
+    rel_paths = parse_split(ann, train, fold)
+    if max_videos:
+        rel_paths = rel_paths[:max_videos]
+
+    offsets, lengths, labels, kept_paths, source_fps = [], [], [], [], []
+    offset = 0
+    with open(os.path.join(out_dir, _FRAMES_FILE), "wb") as out:
+        it = rel_paths
+        if progress:
+            try:
+                from tqdm import tqdm
+                it = tqdm(rel_paths, desc="packing UCF101")
+            except ImportError:
+                pass
+        for rel in it:
+            cls = rel.split("/")[0]
+            if cls not in class_to_idx:
+                continue
+            path = os.path.join(vid_root, rel)
+            if not os.path.exists(path):
+                continue
+            video = read_video(path)
+            fps = probe_fps(path)
+            if target_fps:
+                video = video[resample_frame_indices(video.shape[0], fps,
+                                                     target_fps)]
+            if video.shape[0] < n_frame:
+                continue
+            video = resize_crop(video, image_size)
+            out.write(np.ascontiguousarray(video).tobytes())
+            offsets.append(offset)
+            lengths.append(video.shape[0])
+            labels.append(class_to_idx[cls])
+            kept_paths.append(rel)
+            source_fps.append(fps)
+            offset += video.shape[0]
+
+    np.savez(os.path.join(out_dir, _INDEX_FILE),
+             offsets=np.asarray(offsets, np.int64),
+             lengths=np.asarray(lengths, np.int64),
+             labels=np.asarray(labels, np.int64))
+    with open(os.path.join(out_dir, _META_FILE), "w") as f:
+        json.dump({
+            "image_size": image_size, "n_frame": n_frame, "channels": 3,
+            "classes": classes, "paths": kept_paths,
+            "total_frames": offset,
+            "target_fps": target_fps, "source_fps": source_fps,
+        }, f)
+    return out_dir
 
 
 def pack_arrays(out_dir: str, videos: List[np.ndarray], labels: List[int],

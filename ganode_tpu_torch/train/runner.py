@@ -10,11 +10,19 @@ Every random draw of a step comes from ``(config.seed, step, stream)``: the
 host's ``numpy`` generator for the image and the video batches
 (``step_rng``), the device's ``torch.Generator`` for the step's noise
 (``step_generator``). Where the JAX loop folds the step into its key, the
-port seeds a generator from the three numbers. So a resume needs no saved
-random state, and an interrupted and resumed run equals an uninterrupted one
-bit for bit, wherever the device's kernels are deterministic (on the card:
+port seeds a generator from the three numbers. The native loader's streams
+(``data_loader="native"``) are counter-based instead: each step takes the
+next ``d_iters`` batches of each, and a resume opens them at batch
+``start_step * d_iters``. So a resume needs no saved random state, and an
+interrupted and resumed run equals an uninterrupted one bit for bit,
+wherever the device's kernels are deterministic (on the card:
 ``torch.use_deterministic_algorithms(True)``, cuDNN deterministic and
 ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set before cuBLAS starts).
+
+The loop takes each step's batches from ``data/loader.py::prefetch``: a
+background thread draws the batches of the steps ahead (``step_batches``)
+while the device runs the current one, and on the card stages them in
+pinned memory and copies them on a side stream.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from ..data import (
     load_rotmnist,
     rotate_videos,
 )
+from ..data.loader import prefetch
 from ..models import discriminators_for_config, generator_for_config
 from ..utils.checkpoint import CheckpointManager
 from ..utils.config import ExperimentConfig
@@ -47,6 +56,8 @@ from .state import GANState
 
 # The random streams of one step (the third number of the seed).
 IMAGES, VIDEOS, TRAIN, SAMPLES = range(4)
+# Steps whose batches run_training keeps staged ahead of the running one
+PREFETCH_STEPS = 2
 
 
 def build_trainer(config: ExperimentConfig, *, device="cuda") -> GANTrainer:
@@ -107,14 +118,18 @@ def synthetic_ucf(config: ExperimentConfig, n_videos: int = 16, seed: int = 0):
 
 
 def build_data(config: ExperimentConfig, *, synthetic: bool = False,
-               value_range=None):
+               value_range=None, start_step: int = 0):
     """Returns (image_sampler, video_sampler), each with ``sample(rng)``.
 
     ``value_range`` (rotmnist only) rescales the served values; training keeps
     the reference's [0, 1] quirk (reference dataset/mnist_rotation.py:28-32),
     but evaluation must compare reals and tanh fakes on the same [-1, 1] scale.
-    The samplers draw each step's batch from the step alone; the native
-    loader's streams, which would need the resume step, wait for ROADMAP M15.
+
+    ``start_step`` (native loader only) opens the C++ batch streams where a
+    run restored at that step continues them, at batch ``start_step *
+    d_iters``; the python samplers draw each step's batch from the step
+    alone. The native samplers own threads and a memory map: ``close()``
+    them.
     """
     if config.dataset == "rotmnist":
         if synthetic or not os.path.exists(config.data_path):
@@ -135,15 +150,32 @@ def build_data(config: ExperimentConfig, *, synthetic: bool = False,
             if not synthetic:
                 raise FileNotFoundError(
                     f"packed UCF101 not found at {config.data_path}; pack it "
-                    "with scripts/pack_ucf101.py or pass synthetic=True")
+                    "with python -m ganode_tpu_torch.pack_ucf101 or pass "
+                    "synthetic=True")
             videos, labels = synthetic_ucf(config)
             return (ArrayImages(videos, labels, config.batch_size),
                     ArrayClips(videos, labels, config.batch_size,
                                config.video_length))
         if config.data_loader == "native":
-            raise NotImplementedError(
-                "data_loader='native' (the C++ clip loader) waits for "
-                "ROADMAP M15; use data_loader='python'")
+            # the C++ thread ring (runtime/clip_loader.cc); a step takes
+            # d_iters batches of each stream
+            from ..runtime import NativeClipSampler, NativeImageSampler
+
+            start = start_step * config.d_iters
+            images = NativeImageSampler(
+                config.data_path, config.batch_size,
+                n_threads=max(1, config.data_loader_threads // 2),
+                seed=config.seed + 1, start_batch=start)
+            try:
+                clips = NativeClipSampler(
+                    config.data_path, config.batch_size,
+                    n_frame=config.video_length,
+                    n_threads=config.data_loader_threads, seed=config.seed,
+                    start_batch=start)
+            except BaseException:
+                images.close()
+                raise
+            return images, clips
         if config.data_loader != "python":
             raise ValueError(
                 f"unknown data_loader {config.data_loader!r}; "
@@ -159,18 +191,38 @@ def _stack_d_batches(sampler, rng: np.random.Generator, d_iters: int):
     return np.stack([sampler.sample(rng)[0] for _ in range(d_iters)])
 
 
+def step_batches(img_sampler, vid_sampler, config: ExperimentConfig,
+                 start_step: int, steps: int):
+    """Each step's real batches, ``(images (d_iters, B, H, W, C), videos
+    (d_iters, B, T, H, W, C))`` as numpy arrays, for the steps
+    ``start_step .. steps - 1`` in order: the python samplers draw from the
+    step's ``IMAGES`` and ``VIDEOS`` streams, the native ones take their
+    next ``d_iters`` batches."""
+    for step in range(start_step, steps):
+        yield (_stack_d_batches(img_sampler,
+                                step_rng(config.seed, step, IMAGES),
+                                config.d_iters),
+               _stack_d_batches(vid_sampler,
+                                step_rng(config.seed, step, VIDEOS),
+                                config.d_iters))
+
+
 def make_host_data_step(trainer: GANTrainer):
     """The loop body of ``run_training``: ``step(state, images, videos,
-    generator, noise=None) -> metrics``, with numpy batches ``(d_iters, B,
-    ...)`` copied to the trainer's device, and the step's noise from
-    ``generator`` or the ``noise`` tape (``GANTrainer.train_step``)."""
+    generator, noise=None) -> metrics``, with batches ``(d_iters, B, ...)``
+    (numpy arrays or tensors) moved to the trainer's device, and the step's
+    noise from ``generator`` or the ``noise`` tape
+    (``GANTrainer.train_step``)."""
     device = trainer.gen.device
 
+    def on_device(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device)
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
     def step(state, images, videos, generator, noise=None):
-        images = torch.from_numpy(np.ascontiguousarray(images)).to(device)
-        videos = torch.from_numpy(np.ascontiguousarray(videos)).to(device)
-        return trainer.train_step(state, images, videos, generator=generator,
-                                  noise=noise)
+        return trainer.train_step(state, on_device(images), on_device(videos),
+                                  generator=generator, noise=noise)
 
     return step
 
@@ -264,6 +316,11 @@ def run_training(
     and return with ``"preempted"`` (the step reached) in the metrics dict;
     rerunning with ``resume=True`` continues from the latest checkpoint.
     ``config.mesh`` waits for ROADMAP M17.
+
+    The batches come through ``prefetch`` (``PREFETCH_STEPS`` steps ahead),
+    built after the restore so that the native streams start at the
+    restored step. However the loop ends (its last step, a stop, a raise),
+    the prefetch worker is stopped and joined, then the samplers closed.
     """
     if config.mesh:
         raise NotImplementedError(
@@ -279,28 +336,26 @@ def run_training(
     if resume and ckpt.latest_step() is not None:
         state = ckpt.restore(state)
         start_step = state.step
-    img_sampler, vid_sampler = build_data(config, synthetic=synthetic)
-
-    logger = MetricsLogger(os.path.join(workdir, "metrics.jsonl"),
-                           print_every=config.log_every)
-    tb = (EventWriter(os.path.join(workdir, "tb")) if config.tensorboard
-          else None)
-    throughput = Throughput(config.batch_size)
-    step_fn = make_host_data_step(trainer)
-
+    img_sampler, vid_sampler = build_data(config, synthetic=synthetic,
+                                          start_step=start_step)
+    batches = prefetch(step_batches(img_sampler, vid_sampler, config,
+                                    start_step, steps),
+                       size=PREFETCH_STEPS, device=dev)
+    logger = tb = None
     metrics = {}
     preempted = False
     stop_path = os.path.join(workdir, "STOP")
-    throughput.start()
     try:
+        logger = MetricsLogger(os.path.join(workdir, "metrics.jsonl"),
+                               print_every=config.log_every)
+        if config.tensorboard:
+            tb = EventWriter(os.path.join(workdir, "tb"))
+        throughput = Throughput(config.batch_size)
+        step_fn = make_host_data_step(trainer)
+        throughput.start()
         with GracefulStop() as stop:
             for step in range(start_step, steps):
-                images = _stack_d_batches(
-                    img_sampler, step_rng(config.seed, step, IMAGES),
-                    config.d_iters)
-                videos = _stack_d_batches(
-                    vid_sampler, step_rng(config.seed, step, VIDEOS),
-                    config.d_iters)
+                images, videos = next(batches)
                 metrics = step_fn(state, images, videos, step_generator(
                     config.seed, step, TRAIN, dev))
                 throughput.update()
@@ -340,7 +395,13 @@ def run_training(
         final_step = state.step
         ckpt.save(final_step, state)
     finally:
-        logger.close()
+        # the worker first: it may be inside a sampler
+        batches.close()
+        for s in (img_sampler, vid_sampler):  # native ones own C++ threads
+            if hasattr(s, "close"):
+                s.close()
+        if logger is not None:
+            logger.close()
         if tb is not None:
             tb.close()
     out = {k: float(v) for k, v in metrics.items()}

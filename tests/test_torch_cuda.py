@@ -761,3 +761,66 @@ def test_evaluate_on_the_card(cuda, tmp_path):
     second = evaluate.main(argv)
     assert second["classifier_train_acc"] is None
     assert second["asset_hashes"] == first["asset_hashes"]
+
+
+def test_prefetch_to_the_card_equals_the_host_batches(cuda):
+    """``data/loader.py::prefetch`` on the card: every leaf of every item
+    arrives equal to its host array, in order, the structure kept."""
+    import numpy as np
+
+    from ganode_tpu_torch.data import prefetch
+
+    rng = np.random.default_rng(0)
+    items = [(rng.standard_normal((3, 5, 7)).astype(np.float32),
+              {"labels": rng.integers(0, 9, 4), "step": i})
+             for i in range(9)]
+    got = list(prefetch(iter(items), size=2, device=cuda))
+    torch.cuda.synchronize()
+    assert len(got) == len(items)
+    for (x, rest), (hx, hrest) in zip(got, items):
+        assert x.device.type == "cuda" and rest["labels"].device.type == "cuda"
+        assert torch.equal(x.cpu(), torch.from_numpy(hx))
+        assert torch.equal(rest["labels"].cpu(),
+                           torch.from_numpy(hrest["labels"]))
+        assert rest["step"] == hrest["step"]
+
+
+def test_the_pinned_ring_is_reused_and_never_refilled_in_flight(
+        cuda, monkeypatch):
+    """size 2 pins 3 buffers per leaf and reuses them. The side stream's
+    copies are held back behind a long device sleep, so a buffer handed
+    back to the worker before its copy ran would be refilled with a later
+    batch and that batch would arrive twice: every batch must still arrive
+    as it was on the host."""
+    import numpy as np
+
+    from ganode_tpu_torch.data import loader
+
+    pinned = []
+    empty = torch.empty
+
+    def counting_empty(*a, **kw):
+        t = empty(*a, **kw)
+        if kw.get("pin_memory"):
+            pinned.append(t.data_ptr())
+        return t
+
+    stream = torch.cuda.Stream
+
+    def delayed_stream(*a, **kw):
+        s = stream(*a, **kw)
+        # the loader's side stream, Stream(device); torch.cuda.current_stream
+        # wraps an existing stream with keywords, and passes through
+        if a and not kw:
+            with torch.cuda.stream(s):
+                torch.cuda._sleep(int(3e8))   # ~0.2 s at the card's clock
+        return s
+
+    monkeypatch.setattr(loader.torch, "empty", counting_empty)
+    monkeypatch.setattr(loader.torch.cuda, "Stream", delayed_stream)
+    items = [np.full((4, 1 << 20), i, np.float32) for i in range(10)]
+    got = list(loader.prefetch(iter(items), size=2, device=cuda))
+    torch.cuda.synchronize()
+    assert [float(x.min()) for x in got] == [float(x.max()) for x in got] \
+        == [float(i) for i in range(10)]
+    assert len(pinned) == 3 == len(set(pinned))

@@ -9,6 +9,7 @@ for the device data step's gather. A pack written by either package must
 read the same in the other.
 """
 import dataclasses
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -249,13 +250,24 @@ def test_missing_dataset_raises(tmp_path):
 
 
 def test_the_native_loader_names_its_roadmap_item(tmp_path):
+    # ROADMAP M15a is ported: data_loader="native" builds the C++ ring's
+    # samplers (tests/test_torch_runtime.py holds their batches to JAX's)
+    if shutil.which("g++") is None:
+        pytest.skip("no C++ compiler to build the native loader")
     out = ucf101.pack_arrays(str(tmp_path / "pack"), _videos(LENGTHS),
                              [0] * 5, image_size=8, n_frame=4)
-    config = get_config("ucf_ode", data_path=out, data_loader="native")
-    with pytest.raises(NotImplementedError, match="M15"):
-        runner.build_data(config)
-    config = dataclasses.replace(config, data_loader="python", video_length=4,
-                                 batch_size=2)
+    config = get_config("ucf_ode", data_path=out, data_loader="native",
+                        video_length=4, batch_size=2, data_loader_threads=2)
+    img, vid = runner.build_data(config)
+    try:
+        assert vid.sample(None)[0].shape == (2, 4, 8, 8, 3)
+        assert img.sample(None)[0].shape == (2, 8, 8, 3)
+    finally:
+        img.close()
+        vid.close()
+    with pytest.raises(ValueError, match="no video has >= 16 frames"):
+        runner.build_data(dataclasses.replace(config, video_length=16))
+    config = dataclasses.replace(config, data_loader="python")
     img, vid = runner.build_data(config)
     assert vid.sample(np.random.default_rng(0))[0].shape == (2, 4, 8, 8, 3)
     with pytest.raises(ValueError, match="unknown data_loader"):

@@ -172,20 +172,20 @@ def test_preemption_then_resume_equals_an_uninterrupted_run(tmp_path,
                                                             monkeypatch,
                                                             uninterrupted):
     config = _tiny(checkpoint_every=1)
-    orig = runner._stack_d_batches
-    calls = {"n": 0}
+    orig = runner.step_generator
 
-    def preempting(sampler, rng, d_iters):
-        calls["n"] += 1
-        if calls["n"] == 3:  # two calls per step: mid data fetch of step 1
+    def preempting(seed, step, stream, device):
+        # the loop draws each step's noise generator as the step starts, in
+        # the main thread (the batches are drawn ahead, in prefetch's)
+        if step == 1 and stream == runner.TRAIN:  # mid step 1
             signal.raise_signal(signal.SIGTERM)
-        return orig(sampler, rng, d_iters)
+        return orig(seed, step, stream, device)
 
-    monkeypatch.setattr(runner, "_stack_d_batches", preempting)
+    monkeypatch.setattr(runner, "step_generator", preempting)
     wd = tmp_path / "pre"
     state, metrics = _run(config, wd, steps=4)
     assert metrics["preempted"] == 2.0 and state.step == 2
-    monkeypatch.setattr(runner, "_stack_d_batches", orig)
+    monkeypatch.setattr(runner, "step_generator", orig)
     assert runner.CheckpointManager(str(wd / "checkpoints")).latest_step() == 2
 
     resumed, m2 = _run(config, wd, steps=4, resume=True)
