@@ -49,6 +49,8 @@ printing one line before the next starts:
     step, samples and checkpoints every 2), and checks what it wrote: four
     finite ``metrics.jsonl`` lines, TensorBoard events (read back by the
     port's own reader), the GIFs of steps 0 and 2, checkpoints 0, 2 and 4;
+    its child process starts together with phase 14's and phase 25's, and
+    phase 14 runs right after it, before the timed phases from 13 on;
 13. drives ``run_training`` on ``ucf_ode`` at full width in this process
     (its batches through ``data/loader.py::prefetch``, drawn ahead in a
     worker thread and copied from pinned memory on a side stream): K1's
@@ -107,8 +109,8 @@ printing one line before the next starts:
     at every output time) against autograd through reversible Heun on the
     card (< 1e-4 of each tensor's largest value), timing both;
 25. runs ``python -m ganode_tpu_torch.train --config mnist_sde --synthetic
-    --steps 2`` at full width: two finite ``metrics.jsonl`` lines and a
-    checkpoint of step 2;
+    --steps 2`` at full width (beside phase 12's child): two finite
+    ``metrics.jsonl`` lines and a checkpoint of step 2;
 26. holds DiffAugment (``train/diffaug.py``, plain tensor code: the JAX
     package's is plain ``jnp``, no kernel) on the card against the CPU given
     the same draws, each op and the whole policy ungated and with ADA gates
@@ -142,7 +144,8 @@ printing one line before the next starts:
 31. times what the discriminators' ``leaky_relu`` with flax's derivative at
     0 (``nn/layers.py``) costs against ``F.leaky_relu``: the
     ``ucf_ode`` (TF32 on) and ``ucf_wgan_gp_128`` steps in turns (flax,
-    fused, fused, flax) in this process;
+    fused, fused, flax) in this process, the warm-up before the first turn
+    only;
 32. for ``ucf_gres`` and then ``ucf_odegres`` (the GResBlock trunks,
     ``nn/gresblock.py``: plain ``F.conv2d``, as the JAX package's are plain
     XLA), trains at full width (B=32, T=16, 64x64x3, ngf = ndf = 64, SN
@@ -184,8 +187,8 @@ printing one line before the next starts:
     float64: each net's parameters after each step and each D step's
     penalty gradient, float64 within 1e-4, float32 within phase 33's fixed
     bars per part;
-38. runs ``python -m ganode_tpu_torch.train_odegan --synthetic`` in child
-    processes: ``--arch mlp`` with adam, euler, rk2 and rk4 (3 steps, B=64)
+38. runs ``python -m ganode_tpu_torch.train_odegan --synthetic`` in five
+    child processes started together: ``--arch mlp`` with adam, euler, rk2 and rk4 (3 steps, B=64)
     and ``--arch dcgan --method euler --dry-run``; exit 0, the losses file
     in the JAX script's format, finite; ms per step.
 39. evaluates at the north-star geometry (``eval/``: cuDNN convolutions
@@ -250,9 +253,36 @@ printing one line before the next starts:
     beside phase 13's python path and phase 8's bare step, the time the
     loop waited for each step's batches;
 46. (run right after phase 19) the same for ``ucf_wgan_gp_128`` over 32
-    videos of 48 frames at 128x128x3 (~75 MB), 2 steps, K1 +0.
+    videos of 48 frames at 128x128x3 (~75 MB), 2 steps, K1 +0;
+47. writes 256 uniform random digits as MNIST's gzip idx files, runs
+    ``python -m ganode_tpu_torch.build_rotmnist`` on them (in process) and
+    ``run_training`` on ``mnist_ode`` at full width from the file, 2 steps
+    (K1 6 per step, K2 0); samples a ``UCF101RandomClipSampler`` batch (15
+    fps from a 30 fps ``pack_arrays`` pack) and applies the keyed
+    transforms (flip, multi-scale corner and random crops, a temporal
+    window, normalize) on the card and on the CPU with the same draws:
+    within 1e-5, the flips exact;
+48. the single-process references on the card, cuDNN deterministic and
+    TF32 off: 2 ``run_training`` steps of ``ucf_ode`` at full width, one
+    timed step, one ``mnist_moe_ode`` step, ``sample_videos(64)`` of
+    ``ucf_ode`` in eval mode;
+49. ``python -m torch.distributed.run --nproc-per-node 2 chip_smoke.py
+    --mesh-child gloo``: two gloo ranks on the one card (point-to-point
+    messages through pinned host memory) run ``run_training`` on ``ucf_ode`` with
+    ``mesh="data=2"`` (2 steps, B=32 as 16 per rank): after the first
+    step, against phase 48's, the losses within a relative 1e-3, every
+    parameter within 4.2 lr (Adam's two updates, flipped), half of them
+    within 0.01 lr, the BatchNorm statistics within 1e-2 of their largest; both
+    ranks' states and losses equal bit for bit, K1 6 per step per rank; a timed N-way step (ms per rank, bytes and all-reduces per
+    step); one expert-parallel ``mnist_moe_ode`` step on (data=1,
+    expert=2) against phase 48's; a 2-stage ``pipelined_sample_videos(64)``
+    against ``sample_videos`` within 1e-4 (K1 once per rank);
+50. in this process, an NCCL group of one (``init_process_group`` at
+    ``tcp://localhost`` on a free port): the same ``run_training`` with
+    ``mesh="data=1"`` against phase 48's, K1 6 per step, and a timed step;
+    the group is destroyed after.
 
-Float32, except phase 20; each of phases 21-43 prints its seconds. Matrix
+Float32, except phase 20; each of phases 21-50 prints its seconds. Matrix
 products run in full float32 (``torch.backends.cuda.matmul.allow_tf32 =
 False``); the correctness checks also turn TF32 off for cuDNN's
 convolutions, and the serving and training times are taken with cuDNN's
@@ -265,12 +295,16 @@ failure exits non-zero before those lines. Writes nothing but
 
     python3 chip_smoke.py --resume-check DIR
 
-is phase 14's child process: it trains in DIR and prints one JSON line.
+is phase 14's child process: it trains in DIR and prints one JSON line;
+``chip_smoke.py --mesh-child gloo DIR``, run by ``torch.distributed.run``,
+is phase 49's ranks.
 """
 from __future__ import annotations
 
+import atexit
 import copy
 import faulthandler
+import functools
 import importlib.metadata
 import json
 import math
@@ -800,26 +834,108 @@ def run_child(cmd, what, env=None):
     return out.stdout
 
 
+_STARTED: dict = {}
+
+
+def _stop_started():
+    for p, _, _ in _STARTED.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def start_child(key: str, cmd, what, env=None):
+    """Start a child process now, to be waited for by ``wait_child(key)``
+    in a later phase: the child-process gates of phases 12, 14 and 25 run
+    together, before the timed phases 13 on. A run that ends early kills
+    the children it left."""
+    if not _STARTED:
+        atexit.register(_stop_started)
+    _STARTED[key] = (subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=REPO, env={**os.environ, **(env or {})}), what,
+        time.perf_counter())
+
+
+def wait_child(key: str):
+    """-> (the started child's standard output, seconds since its start);
+    fails with the end of its output if it fails."""
+    p, what, t0 = _STARTED.pop(key)
+    try:
+        stdout, stderr = p.communicate(timeout=WATCHDOG_S - 30)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.wait()
+        raise SystemExit(f"FAIL: {what} did not finish in {WATCHDOG_S - 30} s")
+    if p.returncode != 0:
+        say(stdout[-3000:])
+        say(stderr[-6000:])
+    require(p.returncode == 0, f"{what} exited {p.returncode}")
+    return stdout, time.perf_counter() - t0
+
+
+def run_children(runs):
+    """Start child processes ``[(cmd, what), ...]`` at once and wait for
+    each (inside the phase's watchdog) -> ``[(stdout, seconds from the
+    start), ...]``; fails with the end of a failed child's output. Every
+    child is killed if one fails."""
+    t0 = time.perf_counter()
+    procs = [(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                               stderr=subprocess.PIPE, text=True, cwd=REPO),
+              what) for cmd, what in runs]
+    done = []
+    try:
+        for p, what in procs:
+            left = WATCHDOG_S - 30 - (time.perf_counter() - t0)
+            try:
+                stdout, stderr = p.communicate(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                raise SystemExit(f"FAIL: {what} did not finish in "
+                                 f"{WATCHDOG_S - 30} s")
+            if p.returncode != 0:
+                say(stdout[-3000:])
+                say(stderr[-6000:])
+            require(p.returncode == 0, f"{what} exited {p.returncode}")
+            done.append((stdout, time.perf_counter() - t0))
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return done
+
+
 def jsonl(path):
     with open(path) as f:
         return [json.loads(line) for line in f]
 
 
-def cli_phase(card) -> dict:
-    """Phase 12: the training command line at full ucf_ode width."""
+def cli_phase(card, resume_dir, sde_dir) -> dict:
+    """Phase 12: the training command line at full ucf_ode width, started
+    together with phase 14's resume check (in ``resume_dir``) and phase
+    25's mnist_sde command line (in ``sde_dir``)."""
     from ganode_tpu_torch.utils import tb
 
     phase("the training CLI: python -m ganode_tpu_torch.train --config "
-          "ucf_ode --synthetic --steps 4 (full width)")
+          "ucf_ode --synthetic --steps 4 (full width), started together with "
+          "phase 14's resume check and phase 25's mnist_sde command line")
+    start_child("resume", [sys.executable, os.path.abspath(__file__),
+                           "--resume-check", resume_dir], "the resume check",
+                env=CUBLAS_DETERMINISTIC)
+    start_child("sde_cli", [sys.executable, "-m", "ganode_tpu_torch.train",
+                            "--config", "mnist_sde", "--synthetic", "--steps",
+                            "2", "--workdir", os.path.join(sde_dir, "run"),
+                            "--set", "log_every=1"],
+                "the mnist_sde training CLI")
     tmp = tempfile.mkdtemp(prefix="ganode_cli_")
     try:
         wd = os.path.join(tmp, "run")
-        t0 = time.perf_counter()
-        run_child([sys.executable, "-m", "ganode_tpu_torch.train", "--config",
-                   "ucf_ode", "--synthetic", "--steps", "4", "--workdir", wd,
-                   "--set", "log_every=1", "--set", "sample_every=2",
-                   "--set", "checkpoint_every=2"], "the training CLI")
-        seconds = time.perf_counter() - t0
+        start_child("cli", [sys.executable, "-m", "ganode_tpu_torch.train",
+                            "--config", "ucf_ode", "--synthetic", "--steps",
+                            "4", "--workdir", wd, "--set", "log_every=1",
+                            "--set", "sample_every=2", "--set",
+                            "checkpoint_every=2"], "the training CLI")
+        _, seconds = wait_child("cli")
         lines = jsonl(os.path.join(wd, "metrics.jsonl"))
         losses = [{k: l[k] for k in ("dis_img_loss", "dis_vid_loss", "gen_loss")}
                   for l in lines]
@@ -844,7 +960,8 @@ def cli_phase(card) -> dict:
                 and all(math.isfinite(v) for _, d in scalars for v in d.values()),
                 f"TensorBoard events {version} {scalars}")
         ckpt_bytes = os.path.getsize(os.path.join(wd, "checkpoints", "4", "state.pt"))
-        say(f"CLI: 4 steps in {seconds:.1f} s of process (start, kernel load, "
+        say(f"CLI: 4 steps in {seconds:.1f} s of process, beside two others "
+            f"(start, kernel load, "
             f"trainer, 4 steps, 2 GIFs of {gif_sizes} bytes, 3 checkpoints of "
             f"{ckpt_bytes / 2 ** 20:.1f} MiB); losses {losses}; TensorBoard "
             f"events read back: {len(scalars)}; {card}")
@@ -1109,19 +1226,16 @@ def runner_phase(dev, card, name, steps, bare_ms, k1_per_step,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def resume_phase(card) -> dict:
-    """Phase 14: the child below, in a fresh process so that cuBLAS starts
-    with a deterministic workspace."""
+def resume_phase(card, resume_dir) -> dict:
+    """Phase 14: the child below (started by phase 12), in a fresh process
+    so that cuBLAS starts with a deterministic workspace."""
     phase("resume on the card, deterministic: 4 steps straight against 2 "
           "steps + STOP + resume to 4 (ucf_ode, full width), on the python "
           "samplers and through the native loader")
-    tmp = tempfile.mkdtemp(prefix="ganode_resume_")
     try:
-        out = run_child([sys.executable, os.path.abspath(__file__),
-                         "--resume-check", tmp], "the resume check",
-                        env=CUBLAS_DETERMINISTIC)
+        out, _ = wait_child("resume")
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(resume_dir, ignore_errors=True)
     rec = json.loads(out.strip().splitlines()[-1])
     for loader, r in rec.items():
         say(f"resume ({loader}): {r['tensors']} tensors compared, "
@@ -1581,9 +1695,11 @@ def bf16_phase(dev, card, f32_ms, events_ms) -> dict:
 VARIANTS = ("mnist_sde", "mnist_cde", "mnist_ode_rnn", "mnist_moe_ode")
 
 
-def variant_phases(dev, card, events_ms) -> dict:
+def variant_phases(dev, card, events_ms, sde_cli) -> dict:
     """Phases 21-25 (module docstring): the SDE, CDE, ODE-RNN and MoE-ODE
-    configs, which run no kernel, as in JAX; returns the record's entry."""
+    configs, which run no kernel, as in JAX; returns the record's entry.
+    ``sde_cli``: (the mnist_sde command line's directory, its seconds),
+    run beside phase 12."""
     import torch
 
     from ganode_tpu_torch.compat import GeneratorSession
@@ -1764,15 +1880,11 @@ def variant_phases(dev, card, events_ms) -> dict:
     solver["adjoint_ms"], solver["autograd_ms"] = adj_ms, ref_ms
     out["sde_solvers"] = solver
 
-    t0 = time.perf_counter()
     phase("the training CLI: python -m ganode_tpu_torch.train --config "
-          "mnist_sde --synthetic --steps 2 (full width)")
-    tmp = tempfile.mkdtemp(prefix="ganode_sde_cli_")
+          "mnist_sde --synthetic --steps 2 (full width), run beside phase 12")
+    tmp, seconds = sde_cli
     try:
         wd = os.path.join(tmp, "run")
-        run_child([sys.executable, "-m", "ganode_tpu_torch.train", "--config",
-                   "mnist_sde", "--synthetic", "--steps", "2", "--workdir", wd,
-                   "--set", "log_every=1"], "the mnist_sde training CLI")
         lines = jsonl(os.path.join(wd, "metrics.jsonl"))
         losses = [{k: l[k] for k in ("dis_img_loss", "dis_vid_loss",
                                      "gen_loss")} for l in lines]
@@ -1783,8 +1895,8 @@ def variant_phases(dev, card, events_ms) -> dict:
         ckpt = os.path.join(wd, "checkpoints", str(ckpts[-1]), "state.pt")
         require(ckpts and ckpts[-1] == 2 and os.path.getsize(ckpt) > 0,
                 f"mnist_sde checkpoints {ckpts}")
-        seconds = time.perf_counter() - t0
-        say(f"mnist_sde CLI: 2 steps in {seconds:.1f} s of process; losses "
+        say(f"mnist_sde CLI: 2 steps in {seconds:.1f} s of process, beside "
+            f"phase 12's two; losses "
             f"{losses}; checkpoints {ckpts} ({os.path.getsize(ckpt)} bytes); "
             f"{card}")
         out["mnist_sde_cli"] = {"seconds": seconds, "losses": losses,
@@ -2069,6 +2181,8 @@ def leaky_relu_phase(dev, card) -> dict:
     flax_like = mocogan.leaky_relu
     fused = lambda x, negative_slope=0.2: F.leaky_relu(x, negative_slope)
     out = {}
+    # the warm-up steps precede the first turn only: the later turns run
+    # on a warm process
     for name, warmup, n in (("ucf_ode", 2, 5), ("ucf_wgan_gp_128", 1, 1)):
         cfg = get_config(name)
         tr = build_trainer(cfg, device=dev)
@@ -2077,10 +2191,11 @@ def leaky_relu_phase(dev, card) -> dict:
         images, videos = random_batches(cfg, dev, 0)
         runs = {"flax": [], "fused": []}
         try:
-            for which in ("flax", "fused", "fused", "flax"):
+            for turn, which in enumerate(("flax", "fused", "fused", "flax")):
                 mocogan.leaky_relu = flax_like if which == "flax" else fused
-                runs[which].append(timed_steps(tr, state, images, videos, gt,
-                                               warmup, n)[0])
+                runs[which].append(timed_steps(
+                    tr, state, images, videos, gt, warmup if turn == 0 else 0,
+                    n)[0])
         finally:
             mocogan.leaky_relu = flax_like
         out[name] = runs
@@ -2088,8 +2203,8 @@ def leaky_relu_phase(dev, card) -> dict:
         say(f"{name} train_step, leaky_relu with flax's derivative at 0 "
             f"{' / '.join(f'{m:.3f}' for m in runs['flax'])} ms against "
             f"F.leaky_relu {' / '.join(f'{m:.3f}' for m in runs['fused'])} "
-            f"(turns flax, fused, fused, flax; {n} steps each after "
-            f"{warmup}): {100 * (mean['flax'] / mean['fused'] - 1):+.2f} %; "
+            f"(turns flax, fused, fused, flax; {n} steps each, {warmup} "
+            f"warm-up before the first): {100 * (mean['flax'] / mean['fused'] - 1):+.2f} %; "
             f"{card}")
         del tr, state, images, videos
         torch.cuda.empty_cache()
@@ -2686,22 +2801,21 @@ def odegan_phases(dev, card, events_ms) -> dict:
     phase("the ODE-GAN CLI: python -m ganode_tpu_torch.train_odegan "
           f"--synthetic, --arch mlp for adam, euler, rk2 and rk4 "
           f"({ODEGAN_CLI_STEPS} steps, B=64) and --arch dcgan --method euler "
-          "--dry-run, each in a child process")
+          "--dry-run, five child processes at once")
     tmp = tempfile.mkdtemp(prefix="ganode_odegan_")
     cli = {}
     try:
         runs = [("mlp", m, ["--steps", str(ODEGAN_CLI_STEPS)])
                 for m in ("adam", "euler", "rk2", "rk4")]
         runs.append(("dcgan", "euler", ["--dry-run"]))
-        for arch, method, extra in runs:
+        done = run_children([
+            ([sys.executable, "-m", "ganode_tpu_torch.train_odegan",
+              "--synthetic", "--arch", arch, "--method", method, "--workdir",
+              os.path.join(tmp, f"{arch}_{method}")] + extra,
+             f"train_odegan --arch {arch} --method {method}")
+            for arch, method, extra in runs])
+        for (arch, method, extra), (stdout, seconds) in zip(runs, done):
             wd = os.path.join(tmp, f"{arch}_{method}")
-            t1 = time.perf_counter()
-            stdout = run_child([sys.executable, "-m",
-                                "ganode_tpu_torch.train_odegan", "--synthetic",
-                                "--arch", arch, "--method", method,
-                                "--workdir", wd] + extra,
-                               f"train_odegan --arch {arch} --method {method}")
-            seconds = time.perf_counter() - t1
             with open(os.path.join(wd, f"losses_{method}.json")) as f:
                 logged = json.load(f)
             require([sorted(e) for e in logged] == [["d_loss", "g_loss", "step"]]
@@ -2719,10 +2833,11 @@ def odegan_phases(dev, card, events_ms) -> dict:
             cli[f"{arch} {method}"] = {"first_step_ms": first_ms,
                                        "ms_per_later_step": ms_step,
                                        "seconds": seconds, "losses": logged}
-            say(f"train_odegan --arch {arch} --method {method}: exit 0 in "
-                f"{seconds:.1f} s of process; the first step {first_ms:.2f} "
-                f"ms, later steps {ms_step} ms/step (its own clock, synced); "
-                f"losses {logged}; {card}")
+            say(f"train_odegan --arch {arch} --method {method}: exit 0 "
+                f"{seconds:.1f} s after the five started together; the first "
+                f"step {first_ms:.2f} ms, later steps {ms_step} ms/step (its "
+                f"own clock, synced, beside the other four); losses "
+                f"{logged}; {card}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     out["cli"] = cli
@@ -3556,6 +3671,576 @@ def int8_phases(dev, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The data library (phase 47) and the parallel layouts (phases 48-50). The
+# card has one H100: the N-way step runs as two gloo ranks sharing it (every
+# message of a CUDA tensor through pinned host memory, parallel/comm.py),
+# and NCCL as a group of one. What they show is the N-way step's result
+# against the single-process one; no speed is expected from two ranks on
+# one card.
+# ---------------------------------------------------------------------------
+
+ROTMNIST_DIGITS = 256  # idx digits rotated into 16-frame clips (phase 47)
+DATA_STEPS = 2
+# the keyed transforms on the card against the CPU, same draws: the crops,
+# flips and windows move values (exact); the antialiased bilinear resizes
+# sum float32 filter taps in another order
+TOL_TRANSFORM = 1e-5
+MESH_STEPS = 2
+# a checkpoint after every step: the N-way run and the single-process one
+# are compared after their first step (checkpoint "0")
+MESH_RUN = {"log_every": 1, "sample_every": 0, "checkpoint_every": 1}
+# N-way against single-process on the card after one step (cuDNN
+# deterministic, TF32 off). The two differ by rounding at first (the batch
+# statistics combine the ranks' own, the normalisation is not cuDNN's
+# kernel, cuDNN picks its algorithms per local batch); Adam's first
+# updates turn that into a whole step wherever a gradient that cancels to
+# near zero flips its sign, and D's later passes in the step see those
+# moved weights. Bars: the first step's losses within a relative 1e-3;
+# every parameter within ADAM_FLIP_LR * lr, twice the most two Adam
+# updates from zero moments can move (betas 0.5, 0.999: 1 and 1.054 lr);
+# half the parameters within 0.01 lr (a split that lost gradients or
+# statistics moves most of them by about lr); the BatchNorm statistics
+# within 1e-2 of each tensor's largest magnitude. The 99th percentile of
+# the parameters is printed (4.5e-2 to 5.4e-2 lr in two runs).
+TOL_MESH_LOSS = 1e-3
+ADAM_FLIP_LR = 4.2
+MESH_MEDIAN_LR = 0.01
+TOL_MESH_STATS = 1e-2
+
+
+def write_idx(directory, n, seed):
+    """MNIST's idx.gz pair of ``n`` uniform random 28x28 uint8 digits."""
+    import gzip
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(directory, exist_ok=True)
+    images = rng.integers(0, 256, (n, 28, 28), dtype=np.uint8)
+    labels = rng.integers(0, 10, n, dtype=np.uint8)
+    with gzip.open(os.path.join(directory, "train-images-idx3-ubyte.gz"),
+                   "wb") as f:
+        f.write(np.array([2051, n, 28, 28], ">i4").tobytes() + images.tobytes())
+    with gzip.open(os.path.join(directory, "train-labels-idx1-ubyte.gz"),
+                   "wb") as f:
+        f.write(np.array([2049, n], ">i4").tobytes() + labels.tobytes())
+
+
+def data_phase(dev, card) -> dict:
+    """Phase 47 (module docstring); returns the record's entry."""
+    import numpy as np
+    import torch
+
+    from ganode_tpu_torch.build_rotmnist import main as build_rotmnist
+    from ganode_tpu_torch.data import UCF101RandomClipSampler, pack_arrays
+    from ganode_tpu_torch.data import transforms as tt
+    from ganode_tpu_torch.data.frames import get_mean, get_std
+    from ganode_tpu_torch.ops import fused_gru, fused_rk4
+    from ganode_tpu_torch.train import runner
+    from ganode_tpu_torch.utils.config import get_config
+
+    t0 = time.perf_counter()
+    phase(f"the data library: {ROTMNIST_DIGITS} idx digits -> python -m "
+          "ganode_tpu_torch.build_rotmnist (in process) -> run_training "
+          f"mnist_ode at full width ({DATA_STEPS} steps); a "
+          "UCF101RandomClipSampler batch through the keyed transforms on the "
+          "card against the CPU")
+    tmp = tempfile.mkdtemp(prefix="ganode_data_")
+    out = {}
+    try:
+        write_idx(os.path.join(tmp, "mnist"), ROTMNIST_DIGITS, 0)
+        npz = os.path.join(tmp, "rot-mnist.npz")
+        t1 = time.perf_counter()
+        build_rotmnist(["--out", npz, "--mnist-dir", os.path.join(tmp, "mnist"),
+                        "--num", str(ROTMNIST_DIGITS)])
+        build_s = time.perf_counter() - t1
+        with np.load(npz) as f:
+            X, Y = f["X"], f["Y"]
+        require(X.shape == (ROTMNIST_DIGITS, 16, 784) and X.min() >= 0.0
+                and X.max() <= 1.0 + 1e-6 and Y.shape == (ROTMNIST_DIGITS,),
+                f"rot-mnist.npz: X {X.shape} in [{X.min()}, {X.max()}]")
+        cfg = get_config("mnist_ode", data_path=npz, **MESH_RUN)
+        reset_counts()
+        t1 = time.perf_counter()
+        state, metrics = runner.run_training(
+            cfg, os.path.join(tmp, "run"), steps=DATA_STEPS, device=dev)
+        run_s = time.perf_counter() - t1
+        k1, k2 = fused_rk4.launches, fused_gru.launches
+        require(k1 == 6 * DATA_STEPS and k2 == 0 and state.step == DATA_STEPS
+                and all(math.isfinite(v) for v in metrics.values()),
+                f"mnist_ode from build_rotmnist: K1 {k1}, K2 {k2}, {metrics}")
+        say(f"build_rotmnist: {ROTMNIST_DIGITS} clips of 16 frames in "
+            f"{build_s:.2f} s (host); run_training mnist_ode (B="
+            f"{cfg.batch_size}, ngf=ndf={cfg.ngf}) on it: {DATA_STEPS} steps "
+            f"in {run_s:.2f} s, K1 {k1} (6 per step), K2 {k2}; losses "
+            f"{metrics}; {card}")
+        out.update(build_seconds=build_s, run_seconds=run_s, k1_launches=k1,
+                   losses=metrics)
+
+        rng = np.random.default_rng(1)
+        videos = [rng.integers(0, 256, (n, 64, 64, 3), dtype=np.uint8)
+                  for n in (40, 24, 33, 50)]
+        pack = pack_arrays(os.path.join(tmp, "pack"), videos, [0, 1, 2, 3],
+                           source_fps=[30.0] * 4)
+        sampler = UCF101RandomClipSampler(pack, 8, num_frames=16,
+                                          frame_rate=15.0)
+        clips, _ = sampler.sample(np.random.default_rng(2))
+        g = torch.Generator().manual_seed(3)
+        b = clips.shape[0]
+        draws = {
+            "flip": torch.rand(b, generator=g) < 0.5,
+            "scale": torch.randint(0, 5, (b,), generator=g),
+            "pos": torch.randint(0, 5, (b,), generator=g),
+            "start": torch.randint(0, 16 - 8 + 1, (b,), generator=g)}
+        crop = lambda s: int(64 * (1.0, 0.84, 0.71, 0.59, 0.5)[int(s)])
+        draws["offsets"] = torch.stack([torch.stack([
+            torch.randint(0, 64 - crop(s) + 1, (), generator=g)
+            for _ in range(2)]) for s in draws["scale"]])
+
+        def pipeline(x):
+            x = tt.per_clip(tt.random_horizontal_flip, x,
+                            draws={"flip": draws["flip"]})
+            corner = tt.per_clip(
+                functools.partial(tt.multi_scale_corner_crop, size=56), x,
+                draws={"scale_idx": draws["scale"], "pos_idx": draws["pos"]})
+            rand = tt.per_clip(
+                functools.partial(tt.multi_scale_random_crop, size=56), x,
+                draws={"scale_idx": draws["scale"],
+                       "offsets": draws["offsets"]})
+            window = tt.per_clip(
+                functools.partial(tt.temporal_random_crop, size=8), corner,
+                draws={"start": draws["start"]})
+            norm = tt.normalize(window, get_mean(1.0), get_std(1.0))
+            return {"flip": x, "corner": corner, "random": rand,
+                    "window": window, "normalize": norm}
+
+        x = torch.from_numpy(clips)
+        t1 = time.perf_counter()
+        on_card = pipeline(x.to(dev))
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t1
+        on_cpu = pipeline(x)
+        errs = {k: (on_card[k].cpu() - v).abs().max().item()
+                for k, v in on_cpu.items()}
+        require(errs["flip"] == 0.0 and errs["window"] <= TOL_TRANSFORM
+                and all(e <= TOL_TRANSFORM for e in errs.values())
+                and all(v.device.type == dev.type for v in on_card.values()),
+                f"transforms card vs CPU: {errs}")
+        say(f"UCF101RandomClipSampler (15 fps of 30, 8 clips of 16 frames "
+            f"at 64x64x3) -> flip, multi-scale corner and random crops to "
+            f"56, an 8-frame window, normalize, on the card in {card_s:.3f} "
+            f"s: max|card - CPU| {errs} (tol {TOL_TRANSFORM}); {card}")
+        out["transform_max_abs_err"] = errs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    say(f"data phase: {out['seconds']:.1f} s")
+    return out
+
+
+def module_tensors(state) -> dict:
+    """The three nets' ``state_dict`` tensors by name, on the host."""
+    return {f"{name}.{k}": v.detach().cpu().clone()
+            for name in ("gen", "dis_img", "dis_vid")
+            for k, v in getattr(state, name).module.state_dict().items()}
+
+
+def checkpoint_tensors(path) -> dict:
+    """A run's checkpoint blob as ``module_tensors`` names them."""
+    import torch
+
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    return {f"{name}.{k}": v for name in ("gen", "dis_img", "dis_vid")
+            for k, v in blob[name]["module"].items()}
+
+
+def one_step_diff(got: dict, want: dict, param_names, lr) -> dict:
+    """After one step, N-way against single-process: the parameters' largest
+    and 99th-percentile |diff| in units of lr, the statistics' largest
+    |diff| over the tensor's largest magnitude."""
+    import torch
+
+    diffs, stats = [], 0.0
+    for k, v in want.items():
+        if not v.is_floating_point():
+            continue
+        d = (got[k].float() - v.float()).abs().reshape(-1)
+        if k in param_names:
+            diffs.append(d)
+        else:
+            stats = max(stats, d.max().item() / max(v.abs().max().item(),
+                                                     1e-12))
+    d = torch.cat(diffs)
+    q = lambda f: torch.kthvalue(d, max(1, int(f * d.numel()))).values.item()
+    return {"param_max_lr": d.max().item() / lr,
+            "param_median_lr": q(0.5) / lr, "param_q99_lr": q(0.99) / lr,
+            "stats_rel": stats}
+
+
+def param_names(trainer) -> set:
+    return {f"{name}.{k}" for name, m in (("gen", trainer.gen),
+                                          ("dis_img", trainer.dis_img),
+                                          ("dis_vid", trainer.dis_vid))
+            for k, _ in m.named_parameters()}
+
+
+def check_one_step(tag, first_loss, want_loss, diff):
+    rel = max(abs(first_loss[k] - v) / abs(v) for k, v in want_loss.items())
+    say(f"{tag} against single-process after one step: losses max rel "
+        f"{rel:.3e} (tol {TOL_MESH_LOSS}); parameters max|diff| "
+        f"{diff['param_max_lr']:.3f} lr (tol {ADAM_FLIP_LR}), median "
+        f"{diff['param_median_lr']:.2e} lr (tol {MESH_MEDIAN_LR}), 99th "
+        f"percentile {diff['param_q99_lr']:.2e} lr; BatchNorm statistics "
+        f"{diff['stats_rel']:.2e} of their largest (tol {TOL_MESH_STATS})")
+    require(rel <= TOL_MESH_LOSS and diff["param_max_lr"] <= ADAM_FLIP_LR
+            and diff["param_median_lr"] <= MESH_MEDIAN_LR
+            and diff["stats_rel"] <= TOL_MESH_STATS,
+            f"{tag}: losses rel {rel}, {diff}")
+    return {"loss_max_rel": rel, **diff}
+
+
+def state_digest(state) -> dict:
+    """A sha1 of every tensor of a state: modules, Adam moments, EMA."""
+    import hashlib
+
+    out = {}
+    for name in ("gen", "dis_img", "dis_vid"):
+        net = getattr(state, name)
+        tensors = dict(net.module.state_dict())
+        names = {p: k for k, p in net.module.named_parameters()}
+        for p, st in net.opt.state.items():
+            tensors.update({f"adam.{names[p]}.{m}": v for m, v in st.items()})
+        for k, v in tensors.items():
+            out[f"{name}.{k}"] = hashlib.sha1(
+                v.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+def collectives(tally: dict) -> str:
+    """'N all-reduces and M all-gathers' of a per-step ``comm.TALLY``."""
+    return " and ".join(f"{tally.get(f'{op}_calls', 0):.0f} {op.replace('_', '-')}s"
+                        for op in ("all_reduce", "all_gather"))
+
+
+def timed_parallel_step(cfg, dev, mesh, n=2):
+    """ms per N-way train_step (1 warm-up, then ``n`` synced steps on this
+    rank) and the collective bytes and all-reduces per step."""
+    import torch
+
+    from ganode_tpu_torch.parallel import comm
+    from ganode_tpu_torch.parallel.step import make_parallel_step
+    from ganode_tpu_torch.train import runner
+
+    tr = runner.build_trainer(cfg, device=dev)
+    step, place_state, place_batch = make_parallel_step(tr, mesh)
+    state = place_state(tr.init_state())
+    images, videos = place_batch(*random_batches(cfg, dev, 3))
+    g = torch.Generator(dev).manual_seed(4)
+    step(state, images, videos, generator=g)
+    torch.cuda.synchronize()
+    comm.reset_tally()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        m = step(state, images, videos, generator=g)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    tally = {k: v / n for k, v in comm.TALLY.items()}
+    return ms, tally, {k: float(v) for k, v in m.items()}
+
+
+def mesh_child(kind: str, directory: str) -> int:
+    """Phase 49's ranks, under ``torch.distributed.run``: 2 ranks of
+    ``kind`` ("gloo") on the one card. Writes ``rank<r>.pt`` in
+    ``directory``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from ganode_tpu_torch.ops import _build
+    from ganode_tpu_torch.parallel import init_distributed
+
+    dev = init_distributed(kind, "cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    _build.load_library()
+    try:
+        out = mesh_rank(kind, directory, dev)
+        torch.save(out, os.path.join(directory, f"rank{dist.get_rank()}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_rank(kind: str, directory: str, dev) -> dict:
+    """One rank's part of phases 49 and 50 in an initialised process group:
+    ``run_training`` on ``ucf_ode`` over ``data=<world>``, a timed N-way
+    step and, over gloo, the EP step and the pipelined sampler."""
+    import torch
+    import torch.distributed as dist
+
+    from ganode_tpu_torch.models.pipeline import pipelined_sample_videos
+    from ganode_tpu_torch.models import generator_for_config
+    from ganode_tpu_torch.ops import fused_rk4
+    from ganode_tpu_torch.parallel import comm, make_mesh
+    from ganode_tpu_torch.parallel.step import make_parallel_step
+    from ganode_tpu_torch.train import runner
+    from ganode_tpu_torch.utils.config import get_config
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = {"device": str(dev), "backend": dist.get_backend()}
+    cfg = get_config("ucf_ode", mesh=f"data={world}", **MESH_RUN)
+    reset_counts()
+    comm.reset_tally()
+    t0 = time.perf_counter()
+    state, metrics = runner.run_training(
+        cfg, os.path.join(directory, f"run_{kind}"), steps=MESH_STEPS,
+        synthetic=True, device=dev)
+    torch.cuda.synchronize()
+    out["run_seconds"] = time.perf_counter() - t0
+    out["k1_launches"] = fused_rk4.launches
+    out["metrics"] = metrics
+    out["run_tally"] = dict(comm.TALLY)
+    out["digest"] = state_digest(state)
+    del state
+    mesh = make_mesh(world, ("data",))
+    base = get_config("ucf_ode")
+    ms, tally, m = timed_parallel_step(base, dev, mesh)
+    out.update(step_ms=ms, step_tally=tally, step_metrics=m)
+    if kind == "gloo":
+        # one EP step of mnist_moe_ode: 2 of its 4 experts per rank
+        moe = get_config("mnist_moe_ode")
+        tr = runner.build_trainer(moe, device=dev)
+        ep = make_mesh(None, ("data", "expert"), shape=(1, world))
+        step, place_state, place_batch = make_parallel_step(tr, ep)
+        st = place_state(tr.init_state())
+        ptr = step.__self__
+        out["ep_local_experts"] = tuple(
+            st.gen.module.motion.moe_fn.expert_w1.shape)
+        m = step(st, *place_batch(*random_batches(moe, dev, 7)),
+                 generator=torch.Generator(dev).manual_seed(11))
+        out["ep_metrics"] = {k: float(v) for k, v in m.items()}
+        tensors = module_tensors(st)
+        for k in list(tensors):
+            if k.rsplit(".", 1)[-1].startswith("expert_"):
+                part = dict(st.gen.module.named_parameters())[
+                    k[len("gen."):]].detach()
+                tensors[k] = comm.all_gather(
+                    part.contiguous(), ptr.expert_group).cpu()
+        if rank == 0:
+            out["ep_tensors"] = tensors
+        del tr, st
+        # a 2-stage pipelined sample_videos(64) of ucf_ode
+        gen = generator_for_config(base, device=dev)
+        pipe = make_mesh(world, ("pipe",))
+        reset_counts()
+        comm.reset_tally()
+        t0 = time.perf_counter()
+        videos, _ = pipelined_sample_videos(
+            gen, gen.state_dict(), 64, pipe,
+            generator=torch.Generator(dev).manual_seed(13))
+        torch.cuda.synchronize()
+        out["pp_seconds"] = time.perf_counter() - t0
+        out["pp_k1_launches"] = fused_rk4.launches
+        out["pp_bytes"] = comm.TALLY["bytes"]
+        if rank == 0:
+            out["pp_videos"] = videos.cpu()
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_phases(dev, card) -> dict:
+    """Phases 48-50 (module docstring); returns the record's entry."""
+    import torch
+    import torch.distributed as dist
+    from torch.func import functional_call
+
+    from ganode_tpu_torch.parallel import init_distributed
+
+    from ganode_tpu_torch.models import generator_for_config
+    from ganode_tpu_torch.ops import fused_rk4
+    from ganode_tpu_torch.train import runner
+    from ganode_tpu_torch.utils.config import get_config
+
+    t0 = time.perf_counter()
+    phase("parallel layouts, the single-process references on the card "
+          f"(cuDNN deterministic, TF32 off): run_training ucf_ode ({MESH_STEPS} "
+          "steps, full width), one mnist_moe_ode step, sample_videos(64) of "
+          "ucf_ode in eval mode; one timed ucf_ode step")
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32 = True, False
+    tmp = tempfile.mkdtemp(prefix="ganode_mesh_")
+    out = {}
+    try:
+        cfg = get_config("ucf_ode", **MESH_RUN)
+        state, _ = runner.run_training(cfg, os.path.join(tmp, "single"),
+                                       steps=MESH_STEPS, synthetic=True,
+                                       device=dev)
+        single_log = jsonl(os.path.join(tmp, "single", "metrics.jsonl"))
+        del state
+        ckpt0 = lambda run: os.path.join(tmp, run, "checkpoints", "0",
+                                         "state.pt")
+        single = checkpoint_tensors(ckpt0("single"))
+        losses = lambda line: {k: line[k] for k in (
+            "dis_img_loss", "dis_vid_loss", "gen_loss")}
+        tr = runner.build_trainer(cfg, device=dev)
+        names = param_names(tr)
+        st = tr.init_state()
+        images, videos = random_batches(cfg, dev, 3)
+        g = torch.Generator(dev).manual_seed(4)
+        tr.train_step(st, images, videos, generator=g)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(2):
+            tr.train_step(st, images, videos, generator=g)
+        torch.cuda.synchronize()
+        single_ms = (time.perf_counter() - t1) * 1e3 / 2
+        del tr, st
+        moe = get_config("mnist_moe_ode")
+        tr = runner.build_trainer(moe, device=dev)
+        st = tr.init_state()
+        m = tr.train_step(st, *random_batches(moe, dev, 7),
+                          generator=torch.Generator(dev).manual_seed(11))
+        moe_metrics = {k: float(v) for k, v in m.items()}
+        moe_tensors = module_tensors(st)
+        moe_names = param_names(tr)
+        del tr, st
+        gen = generator_for_config(cfg, device=dev).eval()
+        with torch.no_grad():
+            ref_videos, _ = functional_call(
+                gen, gen.state_dict(), (64,),
+                {"generator": torch.Generator(dev).manual_seed(13)})
+        ref_videos = ref_videos.cpu()
+        del gen
+        torch.cuda.empty_cache()
+        say(f"single process: {MESH_STEPS} run_training steps, losses "
+            f"{[{k: l[k] for k in ('dis_img_loss', 'dis_vid_loss', 'gen_loss')} for l in single_log]}; "
+            f"a ucf_ode step {single_ms:.1f} ms (B=32, synced); {card}")
+
+        def against_single(tag, run):
+            log = jsonl(os.path.join(tmp, run, "metrics.jsonl"))
+            require([l["step"] for l in log] == list(range(MESH_STEPS)),
+                    f"{tag}: metrics.jsonl {log}")
+            return check_one_step(tag, losses(log[0]), losses(single_log[0]),
+                                  one_step_diff(checkpoint_tensors(ckpt0(run)),
+                                                single, names, cfg.lr))
+
+        phase("parallel layouts over gloo, two ranks on the one card: python "
+              "-m torch.distributed.run --nproc-per-node 2 chip_smoke.py "
+              f"--mesh-child gloo (run_training ucf_ode mesh=data=2, "
+              f"{MESH_STEPS} steps; a timed N-way step; one EP mnist_moe_ode "
+              "step on (data=1, expert=2); a 2-stage pipelined "
+              "sample_videos(64))")
+        t1 = time.perf_counter()
+        run_child([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                   "--nproc-per-node", "2", os.path.join(REPO, "chip_smoke.py"),
+                   "--mesh-child", "gloo", tmp], "the two gloo ranks")
+        child_s = time.perf_counter() - t1
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        gloo = against_single("data=2 over gloo", "run_gloo")
+        require(ranks[0]["digest"] == ranks[1]["digest"],
+                "the two ranks' states differ: " + str(sorted(
+                    k for k, v in ranks[0]["digest"].items()
+                    if ranks[1]["digest"][k] != v)[:5]))
+        require(ranks[0]["metrics"] == ranks[1]["metrics"],
+                f"the ranks report different losses: {ranks[0]['metrics']}, "
+                f"{ranks[1]['metrics']}")
+        k1 = [r["k1_launches"] for r in ranks]
+        require(k1 == [6 * MESH_STEPS] * 2, f"K1 per rank {k1}")
+        say(f"data=2 over gloo: {MESH_STEPS} steps in {ranks[0]['run_seconds']:.1f} s "
+            f"of rank 0 ({child_s:.1f} s of child processes); both ranks' "
+            f"states ({len(ranks[0]['digest'])} tensors, Adam moments "
+            f"included) and losses equal bit for bit; K1 per rank {k1} (6 per "
+            f"step per rank); {card}")
+        say(f"N-way step over gloo, 2 ranks of B=16 on one card: "
+            f"{ranks[0]['step_ms']:.1f} / {ranks[1]['step_ms']:.1f} ms per step "
+            f"(single process B=32: {single_ms:.1f} ms); per step and rank "
+            f"{ranks[0]['step_tally']['bytes'] / 2 ** 20:.1f} MiB in "
+            f"{collectives(ranks[0]['step_tally'])} (the gradients in one "
+            f"flat all-reduce per update, an all-gather per BatchNorm, the "
+            f"metrics), gloo's own on the card's tensors, "
+            f"{ranks[0]['step_tally']['seconds'] * 1e3:.1f} / "
+            f"{ranks[1]['step_tally']['seconds'] * 1e3:.1f} ms of each "
+            f"rank's host time inside them; {card}")
+        # EP
+        require(ranks[0]["ep_local_experts"][0] == moe.moe_experts // 2
+                and ranks[0]["ep_metrics"] == ranks[1]["ep_metrics"],
+                f"EP step: experts per rank {ranks[0]['ep_local_experts']}, "
+                f"metrics {ranks[0]['ep_metrics']}, {ranks[1]['ep_metrics']}")
+        ep = check_one_step(
+            f"EP mnist_moe_ode step on (data=1, expert=2), "
+            f"{ranks[0]['ep_local_experts'][0]} of {moe.moe_experts} experts "
+            "per rank,", ranks[0]["ep_metrics"], moe_metrics,
+            one_step_diff(ranks[0]["ep_tensors"], moe_tensors, moe_names,
+                          moe.lr))
+        # PP
+        p_err = (ranks[0]["pp_videos"] - ref_videos).abs().max().item()
+        pk1 = [r["pp_k1_launches"] for r in ranks]
+        require(p_err <= TOL_VIDEO and pk1 == [1, 1],
+                f"pipelined sample_videos: max|diff| {p_err}, K1 {pk1}")
+        say(f"2-stage pipelined_sample_videos(64) of ucf_ode (2 microbatches "
+            f"of 512 frames, sends through pinned host memory): max|pipelined "
+            f"- sample_videos| {p_err:.3e} (tol {TOL_VIDEO}); "
+            f"{ranks[0]['pp_seconds']:.2f} s, {ranks[0]['pp_bytes'] / 2 ** 20:.1f} "
+            f"MiB moved by rank 0; K1 per rank {pk1}; {card}")
+        out["gloo"] = {
+            "child_seconds": child_s, "run_seconds": ranks[0]["run_seconds"],
+            "against_single": gloo, "k1_launches_per_rank": k1,
+            "step_ms_per_rank": [r["step_ms"] for r in ranks],
+            "single_step_ms": single_ms,
+            "step_bytes_per_rank": ranks[0]["step_tally"]["bytes"],
+            "step_collective_s_per_rank": [r["step_tally"]["seconds"]
+                                           for r in ranks],
+            "step_tally": ranks[0]["step_tally"],
+            "ep": ep,
+            "pp": {"max_abs_err": p_err, "seconds": ranks[0]["pp_seconds"],
+                   "k1_launches_per_rank": pk1,
+                   "bytes_rank0": ranks[0]["pp_bytes"]}}
+
+        phase("NCCL, a group of one in this process (init_process_group "
+              "at tcp://localhost:<a free port>): run_training ucf_ode "
+              f"mesh=data=1, {MESH_STEPS} steps; a timed step")
+        t1 = time.perf_counter()
+        init_distributed("nccl", dev, init_method=f"tcp://localhost:"
+                         f"{free_port()}", rank=0, world_size=1)
+        try:
+            one = mesh_rank("nccl", tmp, dev)
+        finally:
+            dist.destroy_process_group()
+        child_s = time.perf_counter() - t1
+        require(one["backend"] == "nccl", f"backend {one['backend']}")
+        nccl = against_single("data=1 over NCCL", "run_nccl")
+        require(one["k1_launches"] == 6 * MESH_STEPS,
+                f"K1 {one['k1_launches']}")
+        say(f"data=1 over NCCL: {MESH_STEPS} steps in {one['run_seconds']:.1f} s "
+            f"({child_s:.1f} s with the group's set-up); K1 {one['k1_launches']}; a "
+            f"step {one['step_ms']:.1f} "
+            f"ms with {one['step_tally']['bytes'] / 2 ** 20:.1f} MiB in "
+            f"{collectives(one['step_tally'])} over NCCL, "
+            f"{one['step_tally']['seconds'] * 1e3:.1f} ms of host time to "
+            f"enqueue them; {card}")
+        out["nccl"] = {"child_seconds": child_s, "against_single": nccl,
+                       "k1_launches": one["k1_launches"],
+                       "step_ms": one["step_ms"],
+                       "step_bytes": one["step_tally"]["bytes"],
+                       "step_enqueue_s": one["step_tally"]["seconds"]}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32 = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    say(f"parallel phases: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     faulthandler.enable()
     phase("watchdog armed: %d s per phase" % WATCHDOG_S)
@@ -3816,7 +4501,12 @@ def main() -> int:
                 f"trunk alone (1024 frames) {trunk_ms:.3f} ms ({tag}); {card}")
 
     training = train_phases(dev, card, events_ms)
-    entry = {"cli": cli_phase(card)}
+    resume_dir = tempfile.mkdtemp(prefix="ganode_resume_")
+    sde_dir = tempfile.mkdtemp(prefix="ganode_sde_cli_")
+    entry = {"cli": cli_phase(card, resume_dir, sde_dir)}
+    entry["resume"] = resume_phase(card, resume_dir)
+    # the mnist_sde command line ran beside them; phase 25 reads its run
+    sde_cli = (sde_dir, wait_child("sde_cli")[1])
     entry["run_training"] = runner_phase(
         dev, card, "ucf_ode", RUNNER_STEPS,
         training["ucf_ode"]["tf32_on"]["ms_per_step"], 6)
@@ -3824,7 +4514,6 @@ def main() -> int:
         dev, card, "ucf_ode", RUNNER_STEPS,
         training["ucf_ode"]["tf32_on"]["ms_per_step"], 6,
         python_path=entry["run_training"])
-    entry["resume"] = resume_phase(card)
     entry["device_data_step"] = device_data_phase(dev, card)
     training["entry_point"] = entry
     wgan = wgan_phases(dev, card, events_ms)
@@ -3837,7 +4526,7 @@ def main() -> int:
     training["ucf_wgan_gp_128"] = wgan
     training["ucf_ode_bf16"] = bf16_phase(
         dev, card, training["ucf_ode"]["tf32_on"]["ms_per_step"], events_ms)
-    training["motion_variants"] = variant_phases(dev, card, events_ms)
+    training["motion_variants"] = variant_phases(dev, card, events_ms, sde_cli)
     training["diffaug"] = diffaug_phases(dev, card, events_ms,
                                          wgan["ms_per_step"])
     training["leaky_relu_cost_ms"] = leaky_relu_phase(dev, card)
@@ -3845,6 +4534,8 @@ def main() -> int:
     training["odegan"] = odegan_phases(dev, card, events_ms)
     evaluation = eval_phases(dev, card)
     int8 = int8_phases(dev, card)
+    data = data_phase(dev, card)
+    parallel = mesh_phases(dev, card)
 
     worst = lambda kernel: max(e for (k, _), e in errs.items() if k == kernel)
     record = {"kernels": [
@@ -3981,6 +4672,19 @@ def main() -> int:
                                for name in INT8_CONFIGS},
         "by_layer": int8["layers"]})
     record["int8_serving"] = {k: v for k, v in int8.items() if k != "layers"}
+    # the data library's run and the parallel layouts: K1 6 per step in
+    # every rank, once per rank in a pipelined sample; K2 none
+    k1_paths[f"run_training mnist_ode from build_rotmnist, {DATA_STEPS} "
+             "steps"] = data["k1_launches"]
+    for r, n in enumerate(parallel["gloo"]["k1_launches_per_rank"]):
+        k1_paths[f"run_training ucf_ode mesh=data=2 over gloo, {MESH_STEPS} "
+                 f"steps, rank {r}"] = n
+    for r, n in enumerate(parallel["gloo"]["pp"]["k1_launches_per_rank"]):
+        k1_paths[f"pipelined_sample_videos(64) ucf_ode, 2 stages, rank {r}"] = n
+    k1_paths[f"run_training ucf_ode mesh=data=1 over NCCL, {MESH_STEPS} "
+             "steps"] = parallel["nccl"]["k1_launches"]
+    record["data"] = data
+    record["parallel"] = parallel
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3992,4 +4696,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--resume-check"]:
         sys.exit(resume_check(sys.argv[2]))
+    if sys.argv[1:2] == ["--mesh-child"]:
+        sys.exit(mesh_child(sys.argv[2], sys.argv[3]))
     sys.exit(main())

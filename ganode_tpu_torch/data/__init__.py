@@ -1,12 +1,29 @@
-"""Data: rotated-MNIST videos and packed UCF101 with its offline pack, with
-samplers that draw from an explicit ``numpy.random.Generator``, and
-``prefetch`` (twin of ``ganode_tpu.data``; the rotated-MNIST builders, clip
-indexing, frame folders and transforms wait for ROADMAP M15b).
+"""Data: rotated-MNIST videos with their builders, packed UCF101 with its
+offline pack, clip indexing, frame folders, clip-consistent transforms,
+samplers that draw from an explicit ``numpy.random.Generator``,
+``prefetch`` and ``make_global_batch`` (twin of ``ganode_tpu.data``).
 
-``data/video.py`` (OpenCV decoding, for the pack) is not imported here:
-training from a pack needs no OpenCV."""
-from .loader import prefetch
-from .rotmnist import RotMNISTImages, RotMNISTVideos, load_rotmnist, rotate_videos
+``data/video.py`` (OpenCV decoding, for the pack) imports OpenCV only inside
+its decoding functions: training from a pack needs none."""
+from . import transforms
+from .clips import (
+    ClipIndex,
+    UCF101RandomClipSampler,
+    UCF101SequentialClips,
+    compute_clips_for_video,
+    unfold,
+)
+from .frames import FrameFolderVideos, ImageFolderSampler, get_mean, get_std
+from .loader import make_global_batch, prefetch
+from .rotmnist import (
+    RotMNISTImages,
+    RotMNISTVideos,
+    build_rotmnist,
+    load_mnist_idx,
+    load_rotmnist,
+    load_sklearn_digits,
+    rotate_videos,
+)
 from .sampling import ArrayClips, ArrayImages, Sampler
 from .shapes import synthetic_moving_shapes
 from .synthetic import moving_square_video, write_corpus
@@ -23,13 +40,25 @@ from .ucf101 import (
 __all__ = [
     "ArrayClips",
     "ArrayImages",
+    "ClipIndex",
+    "FrameFolderVideos",
+    "ImageFolderSampler",
     "PackedVideoDataset",
     "RotMNISTImages",
     "RotMNISTVideos",
     "Sampler",
     "UCF101ClipSampler",
     "UCF101ImageSampler",
+    "UCF101RandomClipSampler",
+    "UCF101SequentialClips",
+    "build_rotmnist",
+    "compute_clips_for_video",
+    "get_mean",
+    "get_std",
+    "load_mnist_idx",
     "load_rotmnist",
+    "load_sklearn_digits",
+    "make_global_batch",
     "moving_square_video",
     "pack_arrays",
     "pack_ucf101",
@@ -38,5 +67,7 @@ __all__ = [
     "prefetch",
     "rotate_videos",
     "synthetic_moving_shapes",
+    "transforms",
+    "unfold",
     "write_corpus",
 ]

@@ -1,6 +1,6 @@
 """Keeping the device fed: ``prefetch`` stages an iterator's batches ahead
-of the loop that consumes them (twin of ``ganode_tpu/data/loader.py:19``;
-``make_global_batch``, which shards over a mesh, waits for ROADMAP M17).
+of the loop that consumes them (twin of ``ganode_tpu/data/loader.py``), and
+``make_global_batch``, the multi-host feeding path onto a mesh.
 
 A background thread runs the iterator, so the host's gather of batch i + 1
 overlaps the device's work on batch i. Each item is a tuple, list or dict
@@ -248,3 +248,13 @@ def _prefetch_cuda(iterator, size: int, device: torch.device):
     finally:
         stop.set()
         worker.join()
+
+
+def make_global_batch(local_batch, sharding):
+    """Assemble a process-local batch into the global batch placed by
+    ``sharding`` (a ``parallel.Sharding``; the multi-host feeding path:
+    each rank provides its stripe along the 'data'-split axis, in 'data'
+    order) -> this rank's shard of it, as a ``DTensor``."""
+    from ..parallel.mesh import from_process_local
+
+    return from_process_local(local_batch, sharding)

@@ -1,7 +1,6 @@
-"""Rotated-MNIST videos: digits rotated into clips, the loader and the batch
-samplers (twin of ``ganode_tpu/data/rotmnist.py:36-229``; the offline
-preparation, ``build_rotmnist``, ``load_mnist_idx`` and
-``load_sklearn_digits``, waits for ROADMAP M15b).
+"""Rotated-MNIST videos: digits rotated into clips, the offline preparation
+(``load_mnist_idx``, ``load_sklearn_digits``, ``build_rotmnist``), the
+loader and the batch samplers (twin of ``ganode_tpu/data/rotmnist.py``).
 
 The samplers are ``data/sampling.py``'s in-memory ones (a draw from a
 ``numpy.random.Generator``, then a gather) over the rescaled clips.
@@ -14,6 +13,7 @@ in [0, 1] against tanh fakes in [-1, 1]) unless ``value_range`` rescales them.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -68,6 +68,79 @@ def rotate_videos(
     X = X / np.maximum(span, 1e-12)
     X = X - X.min(axis=2, keepdims=True)
     return X, np.asarray(labels).reshape(-1)
+
+
+def load_mnist_idx(data_dir: str, split: str = "train",
+                   num: Optional[int] = None):
+    """Read raw MNIST idx.gz files (the format the reference downloads,
+    utils/images.py:64-94). Returns (images (N, 28, 28) in [-0.5, 0.5],
+    labels)."""
+    import gzip
+
+    prefix = "train" if split == "train" else "t10k"
+    img_path = os.path.join(data_dir, f"{prefix}-images-idx3-ubyte.gz")
+    lbl_path = os.path.join(data_dir, f"{prefix}-labels-idx1-ubyte.gz")
+    with gzip.open(img_path) as f:
+        f.read(16)
+        data = np.frombuffer(f.read(), np.uint8).astype(np.float32)
+    images = ((data - 127.5) / 255.0).reshape(-1, 28, 28)
+    with gzip.open(lbl_path) as f:
+        f.read(8)
+        labels = np.frombuffer(f.read(), np.uint8).astype(np.int64)
+    if num is not None:
+        images, labels = images[:num], labels[:num]
+    return images, labels
+
+
+def load_sklearn_digits(num: Optional[int] = None, seed: int = 0):
+    """Real handwritten digits without network access: scikit-learn's bundled
+    8x8 scans (1797 of them), bicubic-upscaled to MNIST's 28x28 geometry.
+    Returns (images (N, 28, 28) float32 in [-0.5, 0.5], labels (N,) int64),
+    shuffled by ``seed`` so that the classes mix as in MNIST. scikit-learn
+    is imported only here."""
+    from sklearn.datasets import load_digits
+
+    d = load_digits()
+    rng = np.random.RandomState(seed)
+    order = rng.permutation(len(d.images))
+    if num is not None and num < len(order):
+        order = order[:num]
+    small = d.images[order] / 16.0  # (N, 8, 8) in [0, 1]
+    labels = d.target[order].astype(np.int64)
+    images = np.stack([
+        ndimage.zoom(img, 28 / 8, order=3) for img in small
+    ]).astype(np.float32)
+    return np.clip(images, 0.0, 1.0) - 0.5, labels
+
+
+def synthetic_digits(num: int, seed: int = 0):
+    """Up to 1000 procedural 8x8 squares on a -0.5 background, with random
+    labels: the ``--synthetic`` input of ``build_rotmnist``."""
+    rng = np.random.RandomState(seed)
+    n = min(num, 1000)
+    images = np.full((n, 28, 28), -0.5, np.float32)
+    for i in range(n):
+        y, x = rng.randint(4, 18, 2)
+        images[i, y:y + 8, x:x + 8] = 0.5
+    return images, rng.randint(0, 10, n)
+
+
+def build_rotmnist(out_path: str, images: np.ndarray, labels: np.ndarray, *,
+                   num_frames: int = 16, mode: str = "normal", seed: int = 0,
+                   digits: Optional[Tuple[int, ...]] = None) -> str:
+    """Build and save a rotated-MNIST video dataset (``X (N, K, 784)``,
+    ``Y (N,)`` in a compressed ``.npz``).
+
+    ``digits`` filters to those classes (the reference's 3s-only variant,
+    rot-mnist-3s.mat, mnist_moco_ode_wgan.py:30 == digits=(3,))."""
+    labels = np.asarray(labels).reshape(-1)
+    if digits is not None:
+        keep = np.isin(labels, digits)
+        images, labels = images[keep], labels[keep]
+    X, Y = rotate_videos(images, labels, num_frames=num_frames, mode=mode,
+                         seed=seed)
+    np.savez_compressed(out_path, X=X, Y=Y)
+    return out_path
 
 
 def load_rotmnist(path: str, *, train: bool = True, split: int = 500,

@@ -367,11 +367,15 @@ class VideoGenerator(nn.Module):
 
     def forward(self, n: int, *, sample: str = "videos", **kwargs):
         """Default entry: ``sample_videos``; ``sample="images"`` calls
-        ``sample_images`` (the entry ``torch.func.functional_call`` takes)."""
-        if sample not in ("videos", "images"):
-            raise ValueError(f"sample must be 'videos' or 'images', not {sample!r}")
+        ``sample_images``, ``sample="z_video"`` ``sample_z_video`` over the
+        whole clip (the entries ``torch.func.functional_call`` takes)."""
+        if sample not in ("videos", "images", "z_video"):
+            raise ValueError("sample must be 'videos', 'images' or 'z_video', "
+                             f"not {sample!r}")
         if sample == "images":
             return self.sample_images(n, **kwargs)
+        if sample == "z_video":
+            return self.sample_z_video(n, self.video_length, **kwargs)
         return self.sample_videos(n, **kwargs)
 
 

@@ -335,7 +335,7 @@ class MotionMoEODE(nn.Module):
         return {"x0": draw_normal((n, self.dim), generator, generator.device)}
 
     def _field(self, t, y, p):
-        return moe_field(y, *p, top_k=self.top_k)
+        return moe_field(y, *p, top_k=self.top_k, ep=self.moe_fn.ep)
 
     def forward(self, n: int, video_len: int, *, generator=None,
                 x0=None) -> torch.Tensor:

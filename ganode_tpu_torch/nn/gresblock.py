@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ode import odeint_final
+from ..parallel import comm
 from ..ode import tableaus as tb
 from .layers import lecun_normal_
 from .norm import ConditionalNorm
@@ -117,7 +118,11 @@ def stateless_cbn(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     (biased variance, no running state), ``gamma``/``beta`` ``(N, C)``:
     what train-mode BatchNorm computes inside the ODE field."""
     dims = (0, *range(2, x.ndim))
-    var, mean = torch.var_mean(x, dim=dims, keepdim=True, correction=0)
+    group = comm.batch_stats_group()
+    if group is not None:  # a parallel step: the statistics of its batch
+        mean, var = comm.global_moments(x, dims, group, keepdim=True)
+    else:
+        var, mean = torch.var_mean(x, dim=dims, keepdim=True, correction=0)
     h = (x - mean) * torch.rsqrt(var + eps)
     spatial = (1,) * (x.ndim - 2)
     return (gamma.view(gamma.shape[0], -1, *spatial) * h

@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import comm
+
 
 class _LeakyReLU(torch.autograd.Function):
     """``F.leaky_relu`` whose derivative at 0 is 1, as flax's
@@ -68,6 +70,12 @@ class BatchNorm(nn.Module):
     the input's dtype. ``F.batch_norm`` takes the mixed dtypes so; flax's
     variance is ``mean(x^2) - mean(x)^2``, torch's the two-pass one, equal
     up to float32 rounding, far below a bfloat16 step.
+
+    Inside a parallel step (``parallel.comm.batch_stats_over``) train mode
+    takes the statistics over the group's whole batch
+    (``comm.global_moments``: one differentiable all-gather of each rank's
+    mean and variance), so that every rank normalises and moves its running
+    statistics as the single-device step on the global batch does.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5,
@@ -101,6 +109,9 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
         dims = [0, *range(2, x.ndim)]
+        group = comm.batch_stats_group()
+        if group is not None:
+            return self._forward_over(x, dims, group)
         with torch.no_grad():
             var, mean = torch.var_mean(x.to(self.running_mean.dtype),
                                        dim=dims, correction=0)
@@ -112,6 +123,21 @@ class BatchNorm(nn.Module):
         # variance, as flax does, and updates no running buffer
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+    def _forward_over(self, x: torch.Tensor, dims, group) -> torch.Tensor:
+        """Train mode with the statistics of ``group``'s whole batch."""
+        xf = x.to(self.running_mean.dtype)
+        mean, var = comm.global_moments(xf, dims, group)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        y = (xf - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.eps)
+        if self.weight is not None:
+            y = y * self.weight.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
 
 
 class Noise(nn.Module):

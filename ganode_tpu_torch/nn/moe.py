@@ -10,6 +10,12 @@ Dense dispatch: every expert runs on the whole batch, three einsums over the
 expert axis, as the JAX field computes them. ``top_k > 0`` keeps, per row,
 the logits at or above the k-th largest (JAX's threshold rule: on ties more
 than k experts stay) and masks the rest before the softmax.
+
+Expert parallelism (``parallel/step.py::shard_state_ep``): a rank holds the
+stacked parameters of experts ``[offset, offset + E_local)`` only; the gate
+stays whole. ``ep=(group, offset)`` makes the field weight its experts'
+outputs by their gates and all-reduce the partial combine over ``group``
+(differentiable), which sums every expert's share.
 """
 from __future__ import annotations
 
@@ -17,20 +23,25 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import comm
 from .layers import init_dense, lecun_normal_
 
 
-def moe_field(y, w1, b1, w2, b2, gate_w, gate_b, top_k: int = 0):
+def moe_field(y, w1, b1, w2, b2, gate_w, gate_b, top_k: int = 0, ep=None):
     """The field over explicit parameters (``gate_w (E, d)`` in Linear
-    layout), as the solvers with their own adjoints take it."""
+    layout), as the solvers with their own adjoints take it; ``ep``: see
+    the module docstring."""
     logits = F.linear(y, gate_w, gate_b)                      # (B, E)
     if top_k and top_k < logits.shape[-1]:
         kth = torch.sort(logits, dim=-1).values[..., -top_k, None]
         logits = logits.masked_fill(logits < kth, float("-inf"))
     gates = torch.softmax(logits, dim=-1)
+    if ep is not None:
+        gates = gates[:, ep[1]:ep[1] + w1.shape[0]]
     hidden = torch.tanh(torch.einsum("bd,edh->ebh", y, w1) + b1[:, None, :])
     out = torch.einsum("ebh,ehd->ebd", hidden, w2) + b2[:, None, :]
-    return torch.einsum("ebd,be->bd", out, gates)
+    mixed = torch.einsum("ebd,be->bd", out, gates)
+    return mixed if ep is None else comm.all_reduce_sum(mixed, ep[0])
 
 
 class MoEField(nn.Module):
@@ -42,6 +53,8 @@ class MoEField(nn.Module):
         super().__init__()
         e, d, h = n_experts, dim, dim_hidden
         self.top_k = top_k
+        self.n_experts = n_experts
+        self.ep = None  # (group, offset) under expert parallelism
         self.expert_w1 = nn.Parameter(torch.empty(e, d, h))
         self.expert_b1 = nn.Parameter(torch.empty(e, h))
         self.expert_w2 = nn.Parameter(torch.empty(e, h, d))
@@ -63,4 +76,5 @@ class MoEField(nn.Module):
                 self.expert_b2, self.gate.weight, self.gate.bias)
 
     def forward(self, y: torch.Tensor) -> torch.Tensor:
-        return moe_field(y, *self.field_params(), top_k=self.top_k)
+        return moe_field(y, *self.field_params(), top_k=self.top_k,
+                         ep=self.ep)

@@ -47,6 +47,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel import comm
 from . import _build
 
 __all__ = ["TRUNK_GEOMETRY", "calibrate_act_scales", "deconv_i8",
@@ -161,8 +162,17 @@ def quantize_trunk(trunk_name: str, trunk) -> Dict[str, list]:
 def _act_quantize(x: torch.Tensor, scale: Optional[torch.Tensor] = None):
     """Symmetric int8 activation quantization -> (codes, scale): ``scale``
     None is dynamic, the max-abs of ``x`` over 127 (a 0-d tensor on ``x``'s
-    device); a calibrated static scale clips what lies beyond it."""
-    s = _over_127(x.abs().amax()) if scale is None else scale
+    device; inside ``parallel.comm.batch_stats_over`` the max over the
+    group's whole batch, as JAX's GSPMD takes it over the global array); a
+    calibrated static scale clips what lies beyond it."""
+    if scale is None:
+        amax = x.abs().amax()
+        group = comm.batch_stats_group()
+        if group is not None:
+            amax = comm.all_reduce_max_(amax.reshape(1), group)[0]
+        s = _over_127(amax)
+    else:
+        s = scale
     return torch.clamp(torch.round(x / s), -127, 127).to(torch.int8), s
 
 

@@ -23,6 +23,14 @@ The loop takes each step's batches from ``data/loader.py::prefetch``: a
 background thread draws the batches of the steps ahead (``step_batches``)
 while the device runs the current one, and on the card stages them in
 pinned memory and copies them on a side stream.
+
+``config.mesh`` (``"data=N"`` or ``"data=N,seq=M"``) runs the same loop in
+every rank of an initialised process group (``parallel.init_distributed``;
+under ``torch.distributed.run`` the CLI does it) through the N-way step of
+``parallel/step.py``: each rank draws the batch the single-process run
+draws at that step and keeps its stripe, and the step computes the global
+step's result on every rank. Rank 0 alone writes metrics, GIFs and
+checkpoints; a resume restores on every rank.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
 from ..data import (
@@ -136,7 +145,8 @@ def build_data(config: ExperimentConfig, *, synthetic: bool = False,
             if not synthetic:
                 raise FileNotFoundError(
                     f"dataset not found at {config.data_path}; build it with "
-                    "scripts/build_rotmnist.py or pass synthetic=True")
+                    "python -m ganode_tpu_torch.build_rotmnist or pass "
+                    "synthetic=True")
             videos, labels = synthetic_rotmnist(config)
         else:
             videos, labels = load_rotmnist(
@@ -220,11 +230,31 @@ def make_host_data_step(trainer: GANTrainer):
             return x.to(device)
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
-    def step(state, images, videos, generator, noise=None):
-        return trainer.train_step(state, on_device(images), on_device(videos),
-                                  generator=generator, noise=noise)
+    def step(state, images, videos, generator, noise=None, *,
+             train_step=trainer.train_step):
+        return train_step(state, on_device(images), on_device(videos),
+                          generator=generator, noise=noise)
 
     return step
+
+
+def make_mesh_data_step(trainer: GANTrainer, state: GANState, mesh):
+    """The loop body of ``run_training`` over ``mesh`` (``parallel/step.py``)
+    -> ``(step, place_batch, state)``: ``place_batch(images, videos)`` cuts
+    the global batches ``(d_iters, B, ...)`` to this rank's stripes (on the
+    host, ahead of the loop), ``step(state, images, videos, generator,
+    noise=None) -> metrics`` runs the N-way step on them, and ``state`` is
+    made replicated across the ranks."""
+    from ..parallel.mesh import make_parallel_step
+
+    par_step, place_state, place_batch = make_parallel_step(trainer, mesh)
+    host_step = make_host_data_step(trainer)
+
+    def step(state, images, videos, generator, noise=None):
+        return host_step(state, images, videos, generator, noise,
+                         train_step=par_step)
+
+    return step, place_batch, place_state(state)
 
 
 def gather_device_batches(videos: torch.Tensor, vid_idx, img_vid_idx,
@@ -259,6 +289,46 @@ def make_device_data_step(trainer: GANTrainer, d_iters: int, video_length: int):
         return trainer.train_step(state, images, clips, generator=generator)
 
     return step
+
+
+def _parse_mesh(spec: str):
+    """'data=4,seq=2' -> (('data', 'seq'), (4, 2))."""
+    names, sizes = [], []
+    for part in spec.split(","):
+        name, _, size = part.partition("=")
+        names.append(name.strip())
+        sizes.append(int(size))
+    allowed = {("data",), ("data", "seq")}
+    if tuple(names) not in allowed:
+        raise ValueError(
+            f"mesh axes {names} unsupported by the runner; use 'data=N' or "
+            "'data=N,seq=M' (TP/EP placements are model-specific — use "
+            "ganode_tpu_torch.parallel directly)")
+    return tuple(names), tuple(sizes)
+
+
+def _mesh_for(config: ExperimentConfig, device):
+    """-> (mesh, the rank's device) for ``config.mesh``: raises without an
+    initialised process group, or when the mesh's size is not the group's,
+    or when the rank's device is not of ``device``'s type."""
+    from ..parallel.mesh import current_device, make_mesh
+
+    axis_names, shape = _parse_mesh(config.mesh)
+    mesh = make_mesh(int(np.prod(shape)), axis_names, shape=shape)
+    dev = current_device()
+    if dev.type != device.type:
+        raise ValueError(f"mesh {config.mesh!r}: this rank runs on {dev}, "
+                         f"not on {device.type}")
+    return mesh, dev
+
+
+def _agree(flag: bool, device) -> bool:
+    """True on every rank when it is on any (one small all-reduce), so
+    that the ranks stop at the same step."""
+    from ..parallel import comm
+
+    t = torch.tensor([float(flag)], device=device)
+    return bool(comm.all_reduce_(t, None)[0] > 0)
 
 
 class GracefulStop:
@@ -315,17 +385,21 @@ def run_training(
     ``log_every`` steps, then deleted), finish the current step, checkpoint,
     and return with ``"preempted"`` (the step reached) in the metrics dict;
     rerunning with ``resume=True`` continues from the latest checkpoint.
-    ``config.mesh`` waits for ROADMAP M17.
+
+    ``config.mesh``: the N-way loop in every rank of the process group (the
+    module docstring); ``device`` names the rank device's type. The ranks
+    agree on a stop at every step.
 
     The batches come through ``prefetch`` (``PREFETCH_STEPS`` steps ahead),
     built after the restore so that the native streams start at the
     restored step. However the loop ends (its last step, a stop, a raise),
     the prefetch worker is stopped and joined, then the samplers closed.
     """
-    if config.mesh:
-        raise NotImplementedError(
-            f"mesh={config.mesh!r}: parallel layouts wait for ROADMAP M17")
     dev = resolve_device(device)
+    mesh = None
+    if config.mesh:
+        mesh, dev = _mesh_for(config, dev)
+    lead = mesh is None or dist.get_rank() == 0  # writes the run's files
     os.makedirs(workdir, exist_ok=True)
     steps = steps if steps is not None else config.steps
     trainer = build_trainer(config, device=dev)
@@ -336,22 +410,30 @@ def run_training(
     if resume and ckpt.latest_step() is not None:
         state = ckpt.restore(state)
         start_step = state.step
+    if mesh is None:
+        step_fn = make_host_data_step(trainer)
+    else:
+        step_fn, place_batch, state = make_mesh_data_step(trainer, state, mesh)
     img_sampler, vid_sampler = build_data(config, synthetic=synthetic,
                                           start_step=start_step)
-    batches = prefetch(step_batches(img_sampler, vid_sampler, config,
-                                    start_step, steps),
-                       size=PREFETCH_STEPS, device=dev)
+    batch_iter = step_batches(img_sampler, vid_sampler, config, start_step,
+                              steps)
+    if mesh is not None:  # this rank's stripes, cut on the host
+        batch_iter = (tuple(x.contiguous() for x in place_batch(*b))
+                      for b in batch_iter)
+    batches = prefetch(batch_iter, size=PREFETCH_STEPS, device=dev)
     logger = tb = None
     metrics = {}
     preempted = False
     stop_path = os.path.join(workdir, "STOP")
     try:
-        logger = MetricsLogger(os.path.join(workdir, "metrics.jsonl"),
-                               print_every=config.log_every)
-        if config.tensorboard:
-            tb = EventWriter(os.path.join(workdir, "tb"))
-        throughput = Throughput(config.batch_size)
-        step_fn = make_host_data_step(trainer)
+        if lead:
+            logger = MetricsLogger(os.path.join(workdir, "metrics.jsonl"),
+                                   print_every=config.log_every)
+            if config.tensorboard:
+                tb = EventWriter(os.path.join(workdir, "tb"))
+        throughput = Throughput(config.batch_size,
+                                1 if mesh is None else dist.get_world_size())
         throughput.start()
         with GracefulStop() as stop:
             for step in range(start_step, steps):
@@ -363,37 +445,49 @@ def run_training(
                 if step % config.log_every == 0:
                     # float() waits for the step: the one host sync per log
                     # boundary, after which Throughput reads true
+                    # (equal on every rank of a mesh: a raise is common)
                     vals = {k: float(v) for k, v in metrics.items()}
                     if not all(np.isfinite(v) for v in vals.values()):
-                        logger.log(step, vals,
-                                   extra={"event": "non_finite_loss"})
-                        ckpt.save(step, state)
+                        if lead:
+                            logger.log(step, vals,
+                                       extra={"event": "non_finite_loss"})
+                            ckpt.save(step, state)
                         raise FloatingPointError(
                             f"non-finite loss at step {step}: {vals}; "
                             f"last state checkpointed to {workdir}/checkpoints")
                     clips_per_sec = throughput.clips_per_sec_per_chip()
-                    logger.log(step, vals,
-                               extra={"clips_per_sec": clips_per_sec})
+                    if lead:
+                        logger.log(step, vals,
+                                   extra={"clips_per_sec": clips_per_sec})
                     if tb is not None:
                         tb.add_scalars(
                             {f"train/{k}": v for k, v in vals.items()}
                             | {"perf/clips_per_sec": clips_per_sec}, step)
                         tb.flush()
-                if config.sample_every and step % config.sample_every == 0:
+                if (lead and config.sample_every
+                        and step % config.sample_every == 0):
                     _write_samples(trainer, state, os.path.join(
                         workdir, "samples", f"gensamples_id{step}.gif"), config)
-                if config.checkpoint_every and step % config.checkpoint_every == 0:
+                if (lead and config.checkpoint_every
+                        and step % config.checkpoint_every == 0):
                     ckpt.save(step, state)
-                if stop.requested or (step % config.log_every == 0
-                                      and os.path.exists(stop_path)):
+                halt = stop.requested or (step % config.log_every == 0
+                                          and os.path.exists(stop_path))
+                if mesh is not None:
+                    halt = _agree(halt, dev)
+                if halt:
                     preempted = True
-                    logger.log(step, metrics, extra={"event": "preempted"})
-                    if os.path.exists(stop_path):
-                        os.remove(stop_path)  # honored; let --resume continue
+                    if lead:
+                        logger.log(step, metrics, extra={"event": "preempted"})
+                        if os.path.exists(stop_path):
+                            os.remove(stop_path)  # honored; --resume goes on
                     break
 
         final_step = state.step
-        ckpt.save(final_step, state)
+        if lead:
+            ckpt.save(final_step, state)
+        if mesh is not None:
+            dist.barrier()  # the checkpoint is on disk before any rank returns
     finally:
         # the worker first: it may be inside a sampler
         batches.close()

@@ -37,6 +37,13 @@ card with TF32 off and cuDNN deterministic, against float64 on the CPU at
 kernel) is held against its CPU run given the same draws: translation and
 cutout exactly, the colour ops at 1e-6; an ADA step as the training step
 above.
+The parallel layer on the card: two gloo ranks sharing it run one step of
+``run_training`` over ``mesh="data=2"`` against one process on the card
+(losses rtol 1e-3; parameters within 4.2 lr, twice the most Adam's two
+D updates from zero moments move, and half of them within 0.01 lr; the
+ranks equal bit for bit), and ``pipeline_apply``'s
+host-staged sends and receives are held against the sequential composition
+on the CPU (forward rtol 1e-5, atol 1e-6; gradients rtol 1e-4, atol 1e-6).
 """
 import copy
 import math
@@ -824,3 +831,64 @@ def test_the_pinned_ring_is_reused_and_never_refilled_in_flight(
     assert [float(x.min()) for x in got] == [float(x.max()) for x in got] \
         == [float(i) for i in range(10)]
     assert len(pinned) == 3 == len(set(pinned))
+
+
+def _parallel():
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_parallel
+    import torch_parallel_worker
+
+    return torch_parallel, torch_parallel_worker
+
+
+def test_two_gloo_ranks_on_the_card_match_one_process(cuda, tmp_path):
+    tp, _ = _parallel()
+    kw = dict(batch_size=4, video_length=8, ngf=8, ndf=8, dim_z_content=4,
+              dim_z_motion=4, d_iters=1, sample_every=0, checkpoint_every=0,
+              log_every=1)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    single, m1 = run_training(get_config("mnist_ode", **kw),
+                              str(tmp_path / "single"), steps=1,
+                              synthetic=True, device=cuda)
+    ranks = tp.run_ranks("runner", 2, {
+        "config": "mnist_ode", "workdir": str(tmp_path / "mesh"),
+        "overrides": {**kw, "mesh": "data=2"}, "steps": 1, "resume": False,
+        "device": "cuda"}, tmp_path)
+    for k, v in m1.items():
+        assert abs(ranks[0]["metrics"][k] - v) <= 1e-3 * abs(v), k
+    lr = get_config("mnist_ode").lr
+    diffs = torch.cat([
+        (ranks[0]["state"][f"{name}.{k}"] - p.detach().cpu()).abs().reshape(-1)
+        for name in ("gen", "dis_img", "dis_vid")
+        for k, p in getattr(single, name).module.named_parameters()])
+    assert diffs.max() <= 4.2 * lr
+    assert diffs.median() <= 0.01 * lr
+    tp.assert_ranks_bitwise(ranks)
+
+
+def test_pipeline_sends_through_host_memory_on_the_card(cuda, tmp_path):
+    tp, _ = _parallel()
+    g = torch.Generator().manual_seed(0)
+    dims = [(7, 16), (16, 5), (5, 12), (12, 3)]
+    params = [{"kernel": torch.randn(i, o, generator=g) / i ** 0.5,
+               "bias": torch.randn(o, generator=g) * 0.1} for i, o in dims]
+    x = torch.randn(8, 7, generator=g)
+    got = tp.run_ranks("pipe", 4, {
+        "x": x.numpy(), "params": [{k: v.numpy() for k, v in p.items()}
+                                   for p in params], "device": "cuda"},
+        tmp_path)
+    ps = [{k: v.clone().requires_grad_() for k, v in p.items()}
+          for p in params]
+    y = x
+    for p in ps:
+        y = torch.tanh(y @ p["kernel"] + p["bias"])
+    (y ** 2).sum().backward()
+    for i, res in enumerate(got):
+        torch.testing.assert_close(res["out"], y.detach(), rtol=1e-5,
+                                   atol=1e-6)
+        for k in ("kernel", "bias"):
+            torch.testing.assert_close(res["grads"][k], ps[i][k].grad,
+                                       rtol=1e-4, atol=1e-6)

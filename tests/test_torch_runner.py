@@ -221,7 +221,9 @@ def test_a_non_finite_loss_halts_with_a_checkpoint(tmp_path, monkeypatch):
 
 
 def test_unported_options_name_their_roadmap_items(tmp_path):
-    with pytest.raises(NotImplementedError, match="M17"):
+    # every option is ported now; a mesh needs the process group of its
+    # ranks (tests/test_torch_runner_mesh.py runs it)
+    with pytest.raises(RuntimeError, match="initialised process group"):
         _run(_tiny(mesh="data=2"), tmp_path / "m", steps=1)
     with pytest.raises(SystemExit):
         main(["--config", "mnist_ode", "--cpu", "--mesh", "data=2"])

@@ -33,8 +33,8 @@ import ganode_tpu.ode as jax_ode
 import ganode_tpu.train.gan as jax_gan
 from ganode_tpu.models.mocogan import (DCGANTrunk64, DCGANTrunk128,
                                       GResTrunk64, MNISTTrunk28)
-from ganode_tpu.models.motion import (MotionCDE, MotionMoEODE, MotionODE,
-                                      MotionSDE)
+from ganode_tpu.models.motion import (MotionCDE, MotionGRU, MotionMoEODE,
+                                      MotionODE, MotionSDE)
 from ganode_tpu.nn.layers import WarmupMLP
 from ganode_tpu.ode.sde import _draw_dW, _substeps
 
@@ -116,7 +116,7 @@ def jax_increments(key, ts, dt, shape) -> np.ndarray:
     return np.stack(out)
 
 
-MOTIONS = (MotionODE, MotionSDE, MotionCDE, MotionMoEODE)
+MOTIONS = (MotionODE, MotionSDE, MotionCDE, MotionMoEODE, MotionGRU)
 
 
 class NoiseRecorder:
@@ -161,6 +161,20 @@ class NoiseRecorder:
             return _f(x, t)
         mp.setattr(jax_ode, "hermite_cubic_coefficients", hermite)
 
+    def patch_gru(self, mp: pytest.MonkeyPatch):
+        """Wrap the JAX GRU motion's scan (``ganode_tpu.models.motion.
+        _manual_scan``, which the sampler reaches by name) to record its
+        ``h0`` and ``e``."""
+        import ganode_tpu.models.motion as jax_motion
+
+        orig = jax_motion._manual_scan
+
+        def scan(cell, h0, e):
+            self._keep("h0", h0)
+            self._keep("e", e)
+            return orig(cell, h0, e)
+        mp.setattr(jax_motion, "_manual_scan", scan)
+
     def samples(self, n: int, video_len: int, dim_z_content: int):
         """One noise dict per sample, as the port's samplers take it: the
         motion's noise (``x0``, ``dW``, ``noise``) and ``z_content``, and
@@ -170,7 +184,8 @@ class NoiseRecorder:
         log = iter(self.log)
         for tag, value, extra in log:
             if tag != "traj":
-                assert tag in ("x0", "dW", "noise") and tag not in noise, tag
+                assert tag in ("x0", "dW", "noise", "h0", "e") \
+                    and tag not in noise, tag
                 noise[tag] = (jax_increments(value, *extra) if tag == "dW"
                               else value if value.dtype == np.float64
                               else value.astype(np.float32))
